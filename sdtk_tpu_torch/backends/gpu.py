@@ -1,0 +1,209 @@
+"""The on-device embedding backend: log-mel kernel + ECAPA-TDNN on the GPU.
+
+The counterpart of ``sdtk_tpu/backends/tpu.py``.  Audio windows are
+batched on the host, then featurized by the fused log-mel kernel
+(``ops/fbank_wave.py``), embedded by the ECAPA tower and L2-normalized
+on the device.  The checkpoint search and its sidecars are the JAX
+package's:
+
+- checkpoint: ``$SDTK_MODEL_PATH``, then ``model_dir()/ecapatdnn.msgpack``,
+  then the bundled ``models/ecapatdnn-fam5tel.msgpack`` (at 512 channels);
+- ``<ckpt>.config.json``: ``{"model": {EcapaConfig overrides},
+  "frontend": {FrontendConfig overrides}, "input_norm": {"mean", "std"}}``;
+- ``<ckpt>.calib.json``: score calibration; its ``suggested_merge_tau``
+  is the diarizer's merge bar.
+
+Float32 convolutions run in full float32: the engine turns off cuDNN's
+TF32 (``torch.backends.cudnn.allow_tf32``, on by default), as the JAX
+reference computes them; the bf16 serving path is unaffected.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import config
+from ..models.ecapa import EcapaConfig, EcapaTdnn, l2_normalize
+from ..ops.fbank import FrontendConfig
+from ..ops.fbank_wave import log_mel_wave
+from ..utils.checkpoint import ecapa_state_dict, read_msgpack
+from ..utils.device import resolve_device
+from .base import LocalEmbeddingBackend
+
+WINDOW_SECONDS = 3.0
+HOP_SECONDS = 1.5
+
+
+class GpuBackend(LocalEmbeddingBackend):
+    def __init__(
+        self,
+        model: str = "ecapa",
+        channels: int = 512,
+        max_windows: int = 16,
+        params_path: str | Path | None = None,
+        seed: int = 0,
+        device: str | torch.device | None = None,
+    ):
+        self.device = resolve_device(device)
+        self._args = (model, channels, max_windows, params_path, seed)
+        self._engine = None
+
+    @property
+    def name(self) -> str:
+        return "gpu"
+
+    @property
+    def engine(self) -> "EmbedEngine":
+        if self._engine is None:
+            self._engine = EmbedEngine(*self._args, device=self.device)
+        return self._engine
+
+    @property
+    def cluster_merge_tau(self) -> float:
+        """The checkpoint's measured merge bar (calibration sidecar), else
+        the class default."""
+        calib = self.engine.calibration
+        if calib and "suggested_merge_tau" in calib:
+            return float(calib["suggested_merge_tau"])
+        return LocalEmbeddingBackend.cluster_merge_tau
+
+    def embed_waveform(self, wav: np.ndarray) -> np.ndarray:
+        return self.engine.embed_one(wav)
+
+
+class EmbedEngine:
+    """Owns the tower's weights on the device and the embed call."""
+
+    def __init__(self, model_name: str, channels: int, max_windows: int,
+                 params_path, seed: int, device: torch.device):
+        if model_name != "ecapa":
+            raise ValueError(f"tower '{model_name}' is not ported; only 'ecapa' is")
+        self.device = device
+        self._channels = channels
+        self._ckpt_path = self._resolve_checkpoint(params_path)
+        sidecar = self._load_config_sidecar(self._ckpt_path)
+
+        self.cfg = FrontendConfig(**sidecar.get("frontend", {}))
+        norm = sidecar.get("input_norm")
+        self._input_norm = (
+            (torch.tensor(np.asarray(norm["mean"], np.float32), device=device),
+             torch.tensor(np.maximum(np.asarray(norm.get("std", 1.0), np.float32), 1e-8),
+                          device=device))
+            if norm else None
+        )
+        self.window_len = int(WINDOW_SECONDS * self.cfg.sample_rate)
+        self.hop_len = int(HOP_SECONDS * self.cfg.sample_rate)
+        self.max_windows = max_windows
+
+        model_over = dict(sidecar.get("model", {}))
+        if "dilations" in model_over:
+            model_over["dilations"] = tuple(model_over["dilations"])
+        self.model = EcapaTdnn(EcapaConfig(**({"channels": channels} | model_over)))
+        self.emb_dim = self.model.cfg.emb_dim
+        if self._ckpt_path is not None:
+            self.model.load_state_dict(ecapa_state_dict(read_msgpack(self._ckpt_path)))
+            self.params_source = str(self._ckpt_path)
+        else:
+            self.model.reset_parameters(torch.Generator().manual_seed(seed))
+            self.params_source = "random-init"
+            print(f"Warning: no trained checkpoint found (searched: "
+                  f"{', '.join(str(p) for p in self._searched)}); using RANDOM weights.",
+                  file=sys.stderr)
+        self.model.to(device).eval()
+        if device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+        self.calibration = self._load_calibration()
+
+    def _resolve_checkpoint(self, params_path) -> Path | None:
+        repo_models = config.repo_models_dir()
+        if params_path:
+            candidates = [Path(params_path)]
+        else:
+            override = config.model_path_override()
+            candidates = ([override] if override else []) + [
+                config.model_dir() / "ecapatdnn.msgpack",
+                repo_models / ("ecapatdnn-fam5tel.msgpack" if self._channels == 512
+                               else "ecapatdnn.msgpack"),
+            ]
+        self._searched = candidates
+        return next((p for p in candidates if p.exists()), None)
+
+    @staticmethod
+    def _read_json_sidecar(path: Path, what: str) -> dict | None:
+        if not path.exists():
+            return None
+        try:
+            data = json.loads(path.read_text())
+            if not isinstance(data, dict):
+                raise ValueError("not a JSON object")
+            return data
+        except (ValueError, OSError) as e:
+            print(f"Warning: ignoring malformed {what} sidecar {path}: {e}", file=sys.stderr)
+            return None
+
+    def _load_config_sidecar(self, ckpt_path) -> dict:
+        if ckpt_path is None:
+            return {}
+        return self._read_json_sidecar(Path(ckpt_path).with_suffix(".config.json"),
+                                       "config") or {}
+
+    def _load_calibration(self) -> dict | None:
+        if self._ckpt_path is None:
+            return None
+        calib = self._read_json_sidecar(self._ckpt_path.with_suffix(".calib.json"),
+                                        "calibration")
+        try:
+            if calib is not None:
+                float(calib["eer_threshold"]), float(calib["gain"])
+            return calib
+        except (KeyError, TypeError, ValueError) as e:
+            print(f"Warning: ignoring malformed calibration sidecar: {e}", file=sys.stderr)
+            return None
+
+    @torch.inference_mode()
+    def embed(self, windows, lengths) -> torch.Tensor:
+        """(W, L) windows + (W,) valid sample counts (numpy or tensors) →
+        (W, emb_dim) float32 unit rows on the engine's device."""
+        x = torch.as_tensor(windows, dtype=torch.float32).to(self.device, non_blocking=True)
+        lens = torch.as_tensor(lengths, dtype=torch.int64).to(self.device)
+        feats, mask = log_mel_wave(x, self.cfg, lengths=lens)
+        if self._input_norm is not None:
+            feats = (feats - self._input_norm[0]) / self._input_norm[1]
+        return l2_normalize(self.model(feats, mask))
+
+    def _window_all(self, wav: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Cut the whole recording into fixed windows: (n, L) and (n,)
+        valid lengths (at least one frame)."""
+        L, hop = self.window_len, self.hop_len
+        n = len(wav)
+        n_win = 1 if n <= L else 1 + (n - L + hop - 1) // hop
+        windows = np.zeros((n_win, L), dtype=np.float32)
+        lengths = np.zeros(n_win, dtype=np.int32)
+        for i in range(n_win):
+            chunk = wav[i * hop : i * hop + L]
+            windows[i, : len(chunk)] = chunk
+            lengths[i] = max(len(chunk), self.cfg.win_length)
+        return windows, lengths
+
+    def embed_all_windows(self, wav: np.ndarray) -> np.ndarray:
+        """Every window of a recording, in ``max_windows``-sized batches
+        (the tail padded with length-0 rows) → (n, D) unit rows."""
+        all_w, all_l = self._window_all(np.asarray(wav, dtype=np.float32))
+        W = self.max_windows
+        out = []
+        for start in range(0, all_w.shape[0], W):
+            w = np.zeros((W, all_w.shape[1]), np.float32)
+            lens = np.zeros(W, np.int32)
+            n = min(W, all_w.shape[0] - start)
+            w[:n], lens[:n] = all_w[start : start + n], all_l[start : start + n]
+            out.append(self.embed(w, lens)[:n].cpu().numpy())
+        return np.concatenate(out, axis=0)
+
+    def embed_one(self, wav: np.ndarray) -> np.ndarray:
+        pooled = self.embed_all_windows(wav).mean(axis=0)
+        return (pooled / max(np.linalg.norm(pooled), 1e-12)).astype(np.float32)

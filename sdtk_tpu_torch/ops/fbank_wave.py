@@ -1,0 +1,101 @@
+"""Fused waveform→log-mel frontend: the CUDA kernel and its wrapper.
+
+The port of ``sdtk_tpu/ops/research/fbank_wave.py:log_mel_wave`` (a
+Pallas kernel for the TPU).  :func:`log_mel_wave` is a drop-in for
+``ops.fbank.log_mel`` — (B, N) waveform → ((B, T, n_mels) f32 feats,
+(B, T) mask).  The kernel (``csrc/log_mel_wave.cu``; its header holds the
+design and the bound) computes the raw log-mel; the wrapper computes the
+frame mask, CMN over valid frames and the mask multiply around it, as the
+TPU kernel's wrapper does.
+
+On a CPU tensor the wrapper runs :func:`log_mel_wave_plain`, the plain
+PyTorch version of the kernel's function.  On a CUDA tensor it launches
+the kernel or raises; it never falls back.  ``log_mel_wave.launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import melbank
+from .fbank import (FrontendConfig, bases, mask_for, normalize, pad_centered,
+                    preemphasize, raw_log_mel)
+
+_launcher = None
+
+
+def _kernel():
+    global _launcher
+    if _launcher is None:
+        from ..utils.build import load_library
+
+        fn = load_library("log_mel_wave").log_mel_wave_launch
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, f, i, p]
+        fn.restype = ctypes.c_int
+        _launcher = fn
+    return _launcher
+
+
+def log_mel_wave_plain(x: torch.Tensor, cfg: FrontendConfig, coeff: float) -> torch.Tensor:
+    """What the kernel computes, in plain PyTorch: (B, N) → (B, T, n_mels)
+    raw log-mel of frames at ``center=False`` after preemphasis by
+    ``coeff`` (no CMN, no mask)."""
+    return raw_log_mel(preemphasize(x.float(), coeff), cfg)
+
+
+def log_mel_wave_cuda(x: torch.Tensor, cfg: FrontendConfig, coeff: float) -> torch.Tensor:
+    """Launch the kernel on the current stream: same contract as
+    :func:`log_mel_wave_plain`, for a CUDA tensor."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 2:
+        raise ValueError(f"expected a 2-D float32 CUDA tensor, got {x.dtype} {tuple(x.shape)} "
+                         f"on {x.device}")
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"kernel supports float32/bfloat16 compute, not {cfg.compute_dtype}")
+    x = x.contiguous()
+    b, n = x.shape
+    t = melbank.num_frames(n, cfg.win_length, cfg.hop_length)  # center=False framing
+    if t <= 0:
+        raise ValueError(f"signal of {n} samples is shorter than one window")
+    wr, wi, mel = bases(cfg, x.device, cfg.torch_dtype)
+    out = torch.empty((b, t, cfg.n_mels), dtype=torch.float32, device=x.device)
+    err = _kernel()(
+        x.data_ptr(), wr.data_ptr(), wi.data_ptr(), mel.data_ptr(), out.data_ptr(),
+        b, n, t, cfg.hop_length, cfg.win_length, wr.shape[1], cfg.n_mels,
+        float(coeff), int(cfg.log_scale == "db"), float(cfg.log_floor),
+        int(cfg.compute_dtype == "bfloat16"),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"log_mel_wave kernel launch failed: cudaError {err}")
+    log_mel_wave.launches += 1
+    return out
+
+
+def log_mel_wave(
+    x: torch.Tensor, cfg: FrontendConfig = FrontendConfig(),
+    lengths: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Drop-in for ``ops.fbank.log_mel`` through the fused kernel.
+
+    ``center=True`` keeps ``fbank.log_mel``'s semantics: the wrapper
+    preemphasizes and zero-pads the signal, then runs the kernel with
+    coefficient 0."""
+    x = x.float()
+    xk, coeff = x, cfg.preemphasis
+    if cfg.center:
+        xk, coeff = pad_centered(preemphasize(x, coeff), cfg), 0.0
+    if x.device.type == "cuda":
+        feats = log_mel_wave_cuda(xk, cfg, coeff)
+    elif x.device.type == "cpu":
+        feats = log_mel_wave_plain(xk, cfg, coeff)
+    else:
+        raise ValueError(f"log_mel_wave runs on cuda or cpu, not {x.device}")
+    mask = mask_for(lengths, x, feats.shape[1], cfg)
+    return normalize(feats, mask, cfg), mask
+
+
+log_mel_wave.launches = 0

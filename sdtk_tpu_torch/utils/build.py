@@ -1,0 +1,85 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exports a plain C launcher and is compiled on
+first use into ``sdtk_tpu_torch/_build/lib<name>-<hash>.so`` for
+``sm_90a``.  The hash covers the source and the flags, so an edited
+kernel rebuilds.  Nothing here falls back: a missing ``nvcc`` or a
+failed compile raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def kernel_names() -> list[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CUDA kernels")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def build(names: list[str] | None = None) -> dict[str, str]:
+    """Compile the named kernels (default: all), one ``nvcc`` each, all
+    started together.  Returns each kernel's compiler output (register and
+    shared-memory use from ``-Xptxas -v``); "" for one already built."""
+    jobs = {n: _start(n) for n in (names or kernel_names())}
+    logs: dict[str, str] = {}
+    failed = []
+    for name, job in jobs.items():
+        if job is None:
+            logs[name] = ""
+            continue
+        proc, tmp, out = job
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{logs[name]}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built first if needed."""
+    if name not in _loaded:
+        build([name])
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return _loaded[name]
