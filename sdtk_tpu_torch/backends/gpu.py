@@ -10,8 +10,10 @@ package's:
   then the bundled ``models/ecapatdnn-fam5tel.msgpack`` (at 512 channels);
 - ``<ckpt>.config.json``: ``{"model": {EcapaConfig overrides},
   "frontend": {FrontendConfig overrides}, "input_norm": {"mean", "std"}}``;
-- ``<ckpt>.calib.json``: score calibration; its ``suggested_merge_tau``
-  is the diarizer's merge bar.
+- ``<ckpt>.calib.json``: score calibration (affine into the 0.354
+  threshold space); its ``suggested_merge_tau`` is the diarizer's merge
+  bar;
+- ``<ckpt>.cohort.npy``: the AS-norm cohort for identify/verify scoring.
 
 Float32 convolutions run in full float32: the engine turns off cuDNN's
 TF32 (``torch.backends.cudnn.allow_tf32``, on by default), as the JAX
@@ -72,8 +74,51 @@ class GpuBackend(LocalEmbeddingBackend):
             return float(calib["suggested_merge_tau"])
         return LocalEmbeddingBackend.cluster_merge_tau
 
+    @property
+    def raw_decision_threshold(self) -> float | None:
+        """Same/different-speaker boundary in raw cosine space from the
+        calibration sidecar (``raw_eer_threshold``, else a raw-space
+        ``eer_threshold``)."""
+        calib = self.engine.calibration
+        if calib and "raw_eer_threshold" in calib:
+            return float(calib["raw_eer_threshold"])
+        if calib and "eer_threshold" in calib and calib.get("score_space", "raw") == "raw":
+            return float(calib["eer_threshold"])
+        return None
+
+    @property
+    def cohort(self) -> np.ndarray | None:
+        """AS-norm cohort from the checkpoint's ``.cohort.npy`` sidecar."""
+        return self.engine.cohort
+
+    @property
+    def embedding_dim(self) -> int:
+        return self.engine.emb_dim
+
+    @property
+    def model_version(self) -> str:
+        """The JAX TpuBackend's format, so records of either compare."""
+        model, channels = self._args[:2]
+        return f"{model}-c{channels}-v1"
+
+    def calibrate_score(self, sims: np.ndarray) -> np.ndarray:
+        """Affine calibration from the ``.calib.json`` sidecar: the raw EER
+        threshold maps onto 0.354, clipped to [0, 1]; identity without a
+        sidecar."""
+        calib = self.engine.calibration
+        if calib is None:
+            return sims
+        mapped = 0.354 + (np.asarray(sims) - calib["eer_threshold"]) * calib["gain"]
+        return np.clip(mapped, 0.0, 1.0)
+
     def embed_waveform(self, wav: np.ndarray) -> np.ndarray:
         return self.engine.embed_one(wav)
+
+    def embed_windows(self, wav: np.ndarray, window_s: float = WINDOW_SECONDS,
+                      hop_s: float = HOP_SECONDS) -> np.ndarray:
+        """Embeddings of every 3 s window (1.5 s hop) of the recording, in
+        ``max_windows``-sized device batches."""
+        return self.engine.embed_all_windows(np.asarray(wav, np.float32))
 
 
 class EmbedEngine:
@@ -118,6 +163,7 @@ class EmbedEngine:
         if device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
         self.calibration = self._load_calibration()
+        self.cohort = self._load_cohort()
 
     def _resolve_checkpoint(self, params_path) -> Path | None:
         repo_models = config.repo_models_dir()
@@ -163,6 +209,22 @@ class EmbedEngine:
             return calib
         except (KeyError, TypeError, ValueError) as e:
             print(f"Warning: ignoring malformed calibration sidecar: {e}", file=sys.stderr)
+            return None
+
+    def _load_cohort(self) -> np.ndarray | None:
+        """``<checkpoint>.cohort.npy``: (C, D) unit embeddings for AS-norm."""
+        if self._ckpt_path is None:
+            return None
+        path = self._ckpt_path.with_suffix(".cohort.npy")
+        if not path.exists():
+            return None
+        try:
+            cohort = np.load(path)
+            if cohort.ndim != 2 or cohort.shape[1] != self.emb_dim:
+                raise ValueError(f"bad cohort shape {cohort.shape}")
+            return np.asarray(cohort, np.float32)
+        except (ValueError, OSError) as e:
+            print(f"Warning: ignoring malformed cohort sidecar {path}: {e}", file=sys.stderr)
             return None
 
     @torch.inference_mode()

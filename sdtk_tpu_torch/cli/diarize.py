@@ -7,7 +7,7 @@ from __future__ import annotations
 import argparse
 import json
 
-from .common import add_quiet, err, info
+from .common import add_device, add_quiet, err, info
 
 
 def cmd_run(args) -> int:
@@ -74,8 +74,7 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--window", type=float, default=1.0)
     parser.add_argument("--hop", type=float, default=0.375)
     parser.add_argument("--backend", "-b")
-    parser.add_argument("--device", default="cuda",
-                        help="torch device (default cuda; 'cpu' runs the plain versions)")
+    add_device(parser)
     parser.add_argument("--recording-id", default="rec")
     parser.add_argument("--eval-rttm", help="Reference RTTM: print DER after diarizing")
     parser.add_argument("--collar", type=float, default=0.25)

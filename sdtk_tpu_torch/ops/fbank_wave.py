@@ -20,24 +20,13 @@ import ctypes
 
 import torch
 
+from ..utils import build
 from . import melbank
 from .fbank import (FrontendConfig, bases, mask_for, normalize, pad_centered,
                     preemphasize, raw_log_mel)
 
-_launcher = None
-
-
-def _kernel():
-    global _launcher
-    if _launcher is None:
-        from ..utils.build import load_library
-
-        fn = load_library("log_mel_wave").log_mel_wave_launch
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, f, i, p]
-        fn.restype = ctypes.c_int
-        _launcher = fn
-    return _launcher
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P]
 
 
 def log_mel_wave_plain(x: torch.Tensor, cfg: FrontendConfig, coeff: float) -> torch.Tensor:
@@ -62,15 +51,14 @@ def log_mel_wave_cuda(x: torch.Tensor, cfg: FrontendConfig, coeff: float) -> tor
         raise ValueError(f"signal of {n} samples is shorter than one window")
     wr, wi, mel = bases(cfg, x.device, cfg.torch_dtype)
     out = torch.empty((b, t, cfg.n_mels), dtype=torch.float32, device=x.device)
-    err = _kernel()(
+    build.launch(
+        "log_mel_wave", _ARGTYPES,
         x.data_ptr(), wr.data_ptr(), wi.data_ptr(), mel.data_ptr(), out.data_ptr(),
         b, n, t, cfg.hop_length, cfg.win_length, wr.shape[1], cfg.n_mels,
         float(coeff), int(cfg.log_scale == "db"), float(cfg.log_floor),
         int(cfg.compute_dtype == "bfloat16"),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"log_mel_wave kernel launch failed: cudaError {err}")
     log_mel_wave.launches += 1
     return out
 

@@ -83,3 +83,16 @@ def load_library(name: str) -> ctypes.CDLL:
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def launch(name: str, argtypes: list, *args) -> None:
+    """Call ``<name>_launch`` of ``csrc/<name>.cu`` (built and bound on first
+    use; pointers and the stream as ``ctypes.c_void_p``) and raise if the
+    cudaError_t it returns is not 0."""
+    fn = getattr(load_library(name), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

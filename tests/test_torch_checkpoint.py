@@ -40,12 +40,17 @@ def test_port_imports_without_jax_or_sdtk_tpu():
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'sdtk_tpu' or m.startswith('sdtk_tpu.')]\n"
         "assert not bad, bad\n"
+        "for m in ('sdtk_tpu_torch.ops.cosine', 'sdtk_tpu_torch.ops.topk_fused',\n"
+        "          'sdtk_tpu_torch.ops.fbank_frames', 'sdtk_tpu_torch.store.profiles',\n"
+        "          'sdtk_tpu_torch.pipeline.identify', 'sdtk_tpu_torch.cli.detection'):\n"
+        "    assert m in mods, m\n"
+        "assert 'yaml' not in sys.modules\n"
         "print(len(mods))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 18
+    assert int(res.stdout.strip()) >= 40
 
 
 def test_chip_smoke_imports_no_jax():

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from sdtk_tpu_torch.ops import fbank, fbank_wave
+from sdtk_tpu_torch.ops import cosine, fbank, fbank_frames, fbank_wave, topk, topk_fused
 
 pytestmark = pytest.mark.cuda
 
@@ -52,3 +52,61 @@ def test_log_mel_wave_kernel_matches_plain(cuda, cfg, tol, shape):
     assert torch.equal(gmask, wmask)
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= tol
+
+
+def _rows(n, d, seed, dtype=torch.float32):
+    x = np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
+    return torch.from_numpy(x).to(dtype)
+
+
+# f32 FMAs on both sides, summed in another order: a few ulps of a cosine.
+@pytest.mark.parametrize("q,n,d", [(32, 4096, 192), (29, 4093, 192), (1, 1, 7), (130, 70, 33)])
+def test_cosine_kernel_matches_plain(cuda, q, n, d):
+    qs, ps = _rows(q, d, 1).to(cuda), _rows(n, d, 2).to(cuda)
+    qs[0] = 0.0  # a zero row scores 0 against everything
+    before = cosine.cosine.launches
+    got = cosine.cosine(qs, ps)
+    torch.cuda.synchronize()
+    assert cosine.cosine.launches == before + 1
+    assert got.shape == (q, n) and float(got[0].abs().max()) == 0.0
+    assert float((got - cosine.cosine_plain(qs, ps)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("w,n,d,k,dtype", [
+    (64, 100_000, 192, 64, torch.float32),
+    (64, 100_000, 192, 128, torch.bfloat16),
+    (8, 8193, 192, 64, torch.float32),
+    (5, 300, 192, 7, torch.float32),
+    (200, 4096, 64, 16, torch.float32),
+    (9, 17, 192, 17, torch.bfloat16),
+    (3, 130, 192, 128, torch.float32),
+    (32, 8192, 192, 192, torch.float32),  # the identify path with 3 embeddings per speaker
+    (16, 3000, 192, 512, torch.bfloat16),  # k = the tile: every row of a tile survives
+    (8, 2000, 192, 700, torch.float32),
+    (3, 130, 192, 512, torch.float32),
+])
+def test_identify_topk_kernel_matches_plain(cuda, w, n, d, k, dtype):
+    qs, ps = _rows(w, d, 3).to(cuda), _rows(n, d, 4, dtype).to(cuda)
+    before = topk_fused.identify_topk_fused.launches
+    s, i = topk_fused.identify_topk_fused(qs, ps, k)
+    torch.cuda.synchronize()
+    assert topk_fused.identify_topk_fused.launches == before + 1
+    ws, wi = topk.identify_topk_plain(qs, ps, k)
+    assert s.shape == (min(k, n),) and set(i.tolist()) == set(wi.tolist())
+    assert bool((s[:-1] >= s[1:]).all())
+    assert float((s - ws).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("cfg,tol", [
+    (fbank.FrontendConfig(), 0.05),
+    (fbank.FrontendConfig(compute_dtype="float32"), 2e-3),
+], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m", [12_544, 7, 33])
+def test_fbank_frames_kernel_matches_plain(cuda, cfg, tol, m):
+    frames = (0.1 * _rows(m, cfg.win_length, 5)).to(cuda)
+    before = fbank_frames.fbank_frames.launches
+    got = fbank_frames.fbank_frames(frames, cfg)
+    torch.cuda.synchronize()
+    assert fbank_frames.fbank_frames.launches == before + 1
+    assert got.shape == (m, cfg.n_mels) and bool(torch.isfinite(got).all())
+    assert float((got - fbank_frames.fbank_frames_plain(frames, cfg)).abs().max()) <= tol
