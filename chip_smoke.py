@@ -10,8 +10,9 @@ any failure raises and exits non-zero:
              (one process per source, started together), timed;
 3. kernel  — each kernel against its plain PyTorch version on the card at
              the main path's shape, with stated tolerances; kernel, plain
-             and library times (CUDA events, median of 30 launches after
-             warm-up, L2 warm) and the bound from this run's inputs;
+             and library times (CUDA events around the wrapper, median of
+             30 launches after warm-up, L2 warm), the kernel's device time
+             alone (``torch.profiler``) and the bound from this run's inputs;
 4. tower   — ECAPA embeddings on the card (bf16) against the port on the
              CPU (f32) for a few windows, by cosine;
 5. main    — ``Diarizer(device="cuda")`` on a synthesized 3-speaker
@@ -35,7 +36,11 @@ any failure raises and exits non-zero:
 
 The kernel phase holds all four kernels (log-mel from the waveform, the
 cosine scores, the fused identify top-k, log-mel from frames) at the
-shapes their path gives them and at the shapes named beside them.  Then
+shapes their path gives them and at the shapes named beside them.  The two
+log-mel kernels run their bf16 instances on the tensor cores; their
+CUDA-core predecessors took 0.4121 ms at (128, 16000) and 0.3361 ms at
+(12544, 400) by the same CUDA-event timing (NVIDIA H100 80GB HBM3,
+700 W; PERF.md).  Then
 the ``kernels`` line, the card's name and power limit as ``nvidia-smi``
 prints them, and ``{"ok": true, "device": {...}}`` last.
 """
@@ -94,6 +99,52 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device time of the CUDA kernel whose name contains ``kernel``
+    over ``reps`` calls of ``fn`` (``torch.profiler``): the kernel alone,
+    without the wrapper's host work.  "not measured" where the profiler
+    shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(float(getattr(e, "self_device_time_total", 0.0)
+                         or getattr(e, "self_cuda_time_total", 0.0))
+                   for e in prof.key_averages()
+                   if kernel in e.key and str(e.device_type).endswith("CUDA"))
+    return total_us / reps / 1e3 if total_us > 0 else "not measured"
+
+
+def with_device_time(row: dict, fn, kernel: str) -> dict:
+    """``row`` with the kernel's device time and the share of its bound that
+    time reaches."""
+    ms = device_ms(fn, kernel)
+    share = row["bound_ms"] / ms if isinstance(ms, float) else "not measured"
+    return {**row, "device_ms": ms, "bound_share_of_device_ms": share}
+
+
+def mma_counts() -> dict:
+    """Tensor-core instructions in the two log-mel libraries' SASS
+    (``cuobjdump``): HMMA is ``mma.sync``, HGMMA is ``wgmma``."""
+    from sdtk_tpu_torch.utils import build
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {name: "not checked" for name in ("log_mel_wave", "fbank_frames")}
+    counts = {}
+    for name in ("log_mel_wave", "fbank_frames"):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=120).stdout
+        counts[name] = {op: sum(f" {op}." in line for line in sass.splitlines())
+                        for op in ("HMMA", "HGMMA")}
+    return counts
+
+
 def bound(nbytes: float, flops: float, dtype: str = "float32") -> dict:
     """The least time the card could take: bytes over HBM rate against
     operations over the peak rate of ``dtype``, whichever is larger."""
@@ -106,7 +157,8 @@ def bound(nbytes: float, flops: float, dtype: str = "float32") -> dict:
 
 def summary(name: str, source: str, replaces: str, row: dict, path: str | None) -> dict:
     """One entry of the ``kernels`` line from a kernel-phase row."""
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("max_abs_err", "ms", "device_ms", "bound_share_of_device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": f"sdtk_tpu_torch/csrc/{source}",
             "replaces": replaces, "path": path, "shape": row["shape"],
             **{k: row[k] for k in keys}}
@@ -127,70 +179,71 @@ def speechlike_batch(b: int, n: int, seed: int):
 
 
 def phase_kernel(device) -> dict:
-    import numpy as np
+    """K1: (B, N) waveform -> (B, T, 80) log-mel at the diarizer's chunk
+    (128 one-second windows), bf16 in both log scales and f32; in bf16 also
+    at the identify path's chunk (32 three-second windows) and at a small
+    ragged shape (3 x 4000: 23 frames a row, less than one tile)."""
     import torch
 
     from sdtk_tpu_torch.ops import fbank, fbank_wave
     from sdtk_tpu_torch.ops.fbank import FrontendConfig
 
-    x_np, len_np = speechlike_batch(128, 16000, seed=0)
-    x = torch.from_numpy(x_np).to(device)
-    lengths = torch.from_numpy(len_np).to(device)
     configs = {
         "bf16-ln": FrontendConfig(),
         "bf16-db-fmin0": FrontendConfig(log_scale="db", mel_fmin=0.0),
         "f32-ln": FrontendConfig(compute_dtype="float32"),
     }
+    cases = [(name, (128, 16000)) for name in configs]
+    cases += [("bf16-ln", (32, 48000)), ("bf16-db-fmin0", (32, 48000)), ("bf16-ln", (3, 4000))]
+    f32 = configs["f32-ln"]
+    win = torch.from_numpy(fbank.melbank.window(f32.win_length, f32.window)).to(device)
+    mel = torch.from_numpy(fbank.melbank.mel_filterbank(
+        f32.n_mels, f32.n_fft, f32.sample_rate, fmin=f32.mel_fmin)).to(device)
     rows = {}
-    for name, cfg in configs.items():
+    for name, (b, n) in cases:
+        cfg = configs[name]
+        x_np, len_np = speechlike_batch(b, n, seed=b)
+        x = torch.from_numpy(x_np).to(device)
+        lengths = torch.from_numpy(len_np).to(device)
         got, gmask = fbank_wave.log_mel_wave(x, cfg, lengths=lengths)
         want, wmask = fbank.log_mel(x, cfg, lengths=lengths)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{name}: kernel output not finite")
+            raise AssertionError(f"{name} {(b, n)}: kernel output not finite")
         if not torch.equal(gmask, wmask):
-            raise AssertionError(f"{name}: frame masks differ")
+            raise AssertionError(f"{name} {(b, n)}: frame masks differ")
         err = float((got - want).abs().max())
         if err > TOL[name]:
-            raise AssertionError(f"{name}: kernel vs plain max|d| {err} > {TOL[name]}")
-        raw_err = float((fbank_wave.log_mel_wave_cuda(x, cfg, cfg.preemphasis)
-                         - fbank_wave.log_mel_wave_plain(x, cfg, cfg.preemphasis)).abs().max())
+            raise AssertionError(f"{name} {(b, n)}: kernel vs plain max|d| {err} > {TOL[name]}")
         coeff = cfg.preemphasis
-        ms = cuda_ms(lambda: fbank_wave.log_mel_wave_cuda(x, cfg, coeff))
-        plain_ms = cuda_ms(lambda: fbank_wave.log_mel_wave_plain(x, cfg, coeff))
-        b, n = x.shape
+        raw_err = float((fbank_wave.log_mel_wave_cuda(x, cfg, coeff)
+                         - fbank_wave.log_mel_wave_plain(x, cfg, coeff)).abs().max())
+
+        def kernel(x=x, cfg=cfg, coeff=coeff):
+            return fbank_wave.log_mel_wave_cuda(x, cfg, coeff)
+
+        # yardstick: one PyTorch FFT pipeline for the same function (f32)
+        def library(x=x):
+            frames = fbank.preemphasize(x, f32.preemphasis).unfold(1, f32.win_length,
+                                                                   f32.hop_length)
+            spec = torch.fft.rfft(frames * win, n=f32.n_fft)
+            return torch.log((spec.real ** 2 + spec.imag ** 2) @ mel + f32.log_floor)
+
         t = got.shape[1]
         n_freqs = cfg.n_fft // 2 + 1
         item = 2 if cfg.compute_dtype == "bfloat16" else 4
         nbytes = (x.numel() * 4 + b * t * cfg.n_mels * 4
                   + (2 * cfg.win_length * n_freqs + n_freqs * cfg.n_mels) * item)
         flops = 2 * b * t * cfg.win_length * n_freqs * 2 + 2 * b * t * n_freqs * cfg.n_mels
-        rows[name] = {
-            "max_abs_err": err, "raw_max_abs_err": raw_err, "tol": TOL[name],
-            "ms": ms, "plain_ms": plain_ms, **bound(nbytes, flops, cfg.compute_dtype),
-        }
+        row = {"shape": [b, n], "frames": t, "max_abs_err": err, "raw_max_abs_err": raw_err,
+               "tol": TOL[name], "ms": cuda_ms(kernel),
+               "plain_ms": cuda_ms(lambda: fbank_wave.log_mel_wave_plain(x, cfg, coeff)),
+               "library_ms": cuda_ms(library), **bound(nbytes, flops, cfg.compute_dtype)}
+        rows[name, b] = with_device_time(row, kernel, "log_mel_")
         emit({"phase": "kernel", "name": "log_mel_wave", "config": name,
-              "shape": [b, n], "frames": t, **rows[name]})
-
-    # yardstick: one PyTorch FFT pipeline for the same function (f32)
-    cfg = configs["f32-ln"]
-    win = torch.from_numpy(fbank.melbank.window(cfg.win_length, cfg.window)).to(device)
-    mel = torch.from_numpy(fbank.melbank.mel_filterbank(
-        cfg.n_mels, cfg.n_fft, cfg.sample_rate, fmin=cfg.mel_fmin)).to(device)
-
-    def library():
-        frames = fbank.preemphasize(x, cfg.preemphasis).unfold(1, cfg.win_length, cfg.hop_length)
-        spec = torch.fft.rfft(frames * win, n=cfg.n_fft)
-        return torch.log((spec.real ** 2 + spec.imag ** 2) @ mel + cfg.log_floor)
-
-    lib_err = float((library() - fbank_wave.log_mel_wave_plain(x, cfg, cfg.preemphasis))
-                    .abs().max())
-    library_ms = cuda_ms(library)
-    emit({"phase": "kernel", "name": "log_mel_wave", "library": "torch.fft.rfft + mel matmul",
-          "library_ms": library_ms, "library_vs_plain_f32_max_abs_err": lib_err})
-    row = {**rows["bf16-ln"], "shape": [b, n], "library_ms": library_ms}
+              "library": "torch.fft.rfft + mel matmul (f32)", **rows[name, b]})
     return summary("log_mel_wave", "log_mel_wave.cu", "sdtk_tpu/ops/research/fbank_wave.py:148",
-                   row, "diarize")
+                   rows["bf16-ln", 128], "diarize")
 
 
 def _gauss(shape, seed: int, device, dtype=None):
@@ -224,6 +277,7 @@ def phase_kernel_cosine(device) -> dict:
                "plain_ms": cuda_ms(lambda: cosine.cosine_plain(q, p)),
                "library_ms": cuda_ms(lambda: F.normalize(q, dim=1) @ F.normalize(p, dim=1).T),
                **bound(4 * (q_n * D + p_n * D + q_n * p_n), 2 * q_n * p_n * D)}
+        row = with_device_time(row, lambda: cosine.cosine_cuda(q, p), "cosine_kernel")
         emit({"phase": "kernel", "name": "cosine",
               "library": "F.normalize(q) @ F.normalize(p).T", **row})
         rows[(q_n, p_n)] = row
@@ -271,6 +325,8 @@ def phase_kernel_topk(device) -> dict:
                "ms": cuda_ms(lambda: topk_fused.identify_topk_cuda(q, p, k)),
                "plain_ms": cuda_ms(lambda: topk.identify_topk_plain(q, p, k)),
                "library_ms": cuda_ms(library), **bound(nbytes, flops)}
+        row = with_device_time(row, lambda: topk_fused.identify_topk_cuda(q, p, k),
+                               "identify_topk_kernel")
         emit({"phase": "kernel", "name": "identify_topk", "config": name,
               "library": "torch.topk((F.normalize(q) @ F.normalize(p).T).amax(0), k)", **row})
         rows[name] = row
@@ -280,54 +336,56 @@ def phase_kernel_topk(device) -> dict:
 
 def phase_kernel_frames(device) -> dict:
     """K4: (M, 400) frames -> (M, 80) log-mel at the diarizer's frame count
-    (128 one-second windows -> M = 12 544), bf16 and f32 compute.  No
-    serving path calls it."""
+    (128 one-second windows -> M = 12 544), bf16 and f32 compute; in bf16
+    also at the identify chunk's frame count (32 x 298 = 9 536) and at
+    M = 65 (one tile and one frame).  No serving path calls it."""
     import torch
 
     from sdtk_tpu_torch.ops import fbank, fbank_frames
     from sdtk_tpu_torch.ops.fbank import FrontendConfig
 
     fbank_frames.fbank_frames.launches = 0  # K4 has no path: its entry counts this phase
-    x_np, _ = speechlike_batch(128, 16000, seed=0)
-    x = torch.from_numpy(x_np).to(device)
-    frames = fbank.preemphasize(x, 0.97).unfold(1, 400, 160).reshape(-1, 400).contiguous()
-    m = frames.shape[0]
+    configs = {"bf16-ln": FrontendConfig(), "f32-ln": FrontendConfig(compute_dtype="float32")}
+    f32 = configs["f32-ln"]
+    win = torch.from_numpy(fbank.melbank.window(400, f32.window)).to(device)
+    mel = torch.from_numpy(fbank.melbank.mel_filterbank(
+        f32.n_mels, f32.n_fft, f32.sample_rate, fmin=fbank_frames.JAX_MEL_FMIN)).to(device)
     rows = {}
-    for name, cfg in (("bf16-ln", FrontendConfig()),
-                      ("f32-ln", FrontendConfig(compute_dtype="float32"))):
+    for name, (b, n), m in (("bf16-ln", (128, 16000), 12544), ("f32-ln", (128, 16000), 12544),
+                            ("bf16-ln", (32, 48000), 9536), ("bf16-ln", (1, 16000), 65)):
+        cfg = configs[name]
+        x = torch.from_numpy(speechlike_batch(b, n, seed=b)[0]).to(device)
+        frames = fbank.preemphasize(x, 0.97).unfold(1, 400, 160).reshape(-1, 400)[:m].contiguous()
+        if frames.shape[0] != m:
+            raise AssertionError(f"expected {m} frames, got {frames.shape[0]}")
         got = fbank_frames.fbank_frames_cuda(frames, cfg)
         want = fbank_frames.fbank_frames_plain(frames, cfg)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not bool(torch.isfinite(got).all()) or err > TOL[name]:
-            raise AssertionError(f"fbank_frames {name}: kernel vs plain max|d| {err}")
+            raise AssertionError(f"fbank_frames {name} M={m}: kernel vs plain max|d| {err}")
+
+        def kernel(frames=frames, cfg=cfg):
+            return fbank_frames.fbank_frames_cuda(frames, cfg)
+
+        def library(frames=frames):
+            spec = torch.fft.rfft(frames * win, n=f32.n_fft)
+            return torch.log((spec.real ** 2 + spec.imag ** 2) @ mel + f32.log_floor)
+
         n_freqs = cfg.n_fft // 2 + 1
         item = 2 if cfg.compute_dtype == "bfloat16" else 4
         nbytes = m * 400 * 4 + m * cfg.n_mels * 4 + (2 * 400 * n_freqs + n_freqs * cfg.n_mels) * item
         flops = 2 * m * 400 * n_freqs * 2 + 2 * m * n_freqs * cfg.n_mels
-        rows[name] = {"shape": [m, 400], "max_abs_err": err, "tol": TOL[name],
-                      "ms": cuda_ms(lambda: fbank_frames.fbank_frames_cuda(frames, cfg)),
-                      "plain_ms": cuda_ms(lambda: fbank_frames.fbank_frames_plain(frames, cfg)),
-                      **bound(nbytes, flops, cfg.compute_dtype)}
-
-    cfg = FrontendConfig(compute_dtype="float32")
-    win = torch.from_numpy(fbank.melbank.window(400, cfg.window)).to(device)
-    mel = torch.from_numpy(fbank.melbank.mel_filterbank(
-        cfg.n_mels, cfg.n_fft, cfg.sample_rate, fmin=fbank_frames.JAX_MEL_FMIN)).to(device)
-
-    def library():
-        spec = torch.fft.rfft(frames * win, n=cfg.n_fft)
-        return torch.log((spec.real ** 2 + spec.imag ** 2) @ mel + cfg.log_floor)
-
-    library_ms = cuda_ms(library)
-    for name, row in rows.items():
-        row["library_ms"] = library_ms
+        row = {"shape": [m, 400], "max_abs_err": err, "tol": TOL[name], "ms": cuda_ms(kernel),
+               "plain_ms": cuda_ms(lambda: fbank_frames.fbank_frames_plain(frames, cfg)),
+               "library_ms": cuda_ms(library), **bound(nbytes, flops, cfg.compute_dtype)}
+        rows[name, m] = with_device_time(row, kernel, "log_mel_")
         emit({"phase": "kernel", "name": "fbank_frames", "config": name,
-              "library": "torch.fft.rfft + mel matmul (f32)", **row})
+              "library": "torch.fft.rfft + mel matmul (f32)", **rows[name, m]})
     fbank_frames.fbank_frames(frames, FrontendConfig())  # the wrapper, as a caller would
     torch.cuda.synchronize()
     entry = summary("fbank_frames", "fbank_frames.cu", "sdtk_tpu/ops/research/fbank_frames.py:24",
-                    rows["bf16-ln"], None)
+                    rows["bf16-ln", 12544], None)
     entry["launches"] = fbank_frames.fbank_frames.launches
     return entry
 
@@ -571,7 +629,8 @@ def main() -> int:
     logs = build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": sorted(logs),
           "ptxas": {k: [ln.strip() for ln in v.splitlines() if "Used" in ln or "spill" in ln]
-                    for k, v in logs.items()}})
+                    for k, v in logs.items()},
+          "tensor_core_instructions": mma_counts()})
 
     kernel_rows = [phase_kernel(device), phase_kernel_cosine(device),
                    phase_kernel_topk(device), phase_kernel_frames(device)]

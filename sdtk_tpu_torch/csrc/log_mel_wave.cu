@@ -1,4 +1,4 @@
-// Fused waveform -> log-mel frontend for Hopper (sm_90a), CUDA cores.
+// Fused waveform -> log-mel frontend for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel sdtk_tpu/ops/research/fbank_wave.py:log_mel_wave
 // (body in _kernel_factory).  It computes ops/fbank.py:raw_log_mel at
@@ -9,192 +9,178 @@
 // the Python wrapper (ops/fbank_wave.py), as in the TPU kernel's wrapper.
 //
 // Rounding follows the JAX frontend: preemphasis in f32, frames rounded to
-// the compute type T, bases and mel matrix given in T, products summed in
-// f32, power rounded to T before the mel product.  T is float or bf16.
+// the compute type, bases and mel matrix given in it, products summed in
+// f32, power rounded to it before the mel product.
 //
 // Bound: at the main-path shape (128 rows x 16000 samples -> 98 frames) the
-// work is ~5.7 GFLOP against 12.7 MB of traffic, so on the tensor cores the
-// card could do it in ~5.8 us (compute-bound).  This first version runs on
-// the CUDA cores and is bound by shared-memory loads feeding the FMAs.
+// work is ~5.7 GFLOP against 12.7 MB of traffic, so on the bf16 tensor
+// cores the card could do it in ~5.8 us (compute-bound).
 //
 // Design.  The TPU kernel's hop-blocked layout, 160 -> 256 lane padding and
 // per-shift GEMM split exist for Mosaic's (8, 128) tiling; none of it is
-// needed here.  One block per (row, tile of FT = 32 frames):
-//   1. the tile's waveform span ((FT-1)*hop + win samples, ~21 KB) is read
-//      once into shared memory, preemphasized in f32 and rounded to T — so
-//      the folded-basis cancellation of the TPU kernel does not arise;
-//   2. the windowed bases (L2-resident, 2 x 400 x 257 in T) are staged
-//      NC rows at a time into shared memory; each thread keeps a register
-//      tile of FPT = 4 frames x KJ = 9 bins (bin = lane + 32 j) of re and im;
-//      the frame samples are warp-wide broadcasts, the basis reads are
-//      conflict-free;
-//   3. power (rounded to T) goes to shared memory over the same space, then
-//      each thread computes mel outputs as dot products over the bins and
-//      writes the log.
-// wgmma / TMA are later work.
+// needed here.  The kernel is dft_mma.cuh's (its header holds the design:
+// tensor cores for bf16, CUDA cores for f32) over this file's frame source.
+// The (batch, t_frames) frames are numbered row by row, so a block's tile of
+// frames may span waveform rows.  The block reads the samples its frames
+// cover once, coalesced, preemphasizes them in f32 (so the folded-basis
+// cancellation of the TPU kernel does not arise), rounds them and keeps them
+// in a part of shared memory the kernel does not use yet; from there each
+// frame is copied to its row of the tile, 16 bytes at a time when hop and
+// win allow it: one pass over device memory whatever the overlap, any hop.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "dft_mma.cuh"
 
 namespace {
 
-constexpr int FT = 32;        // frames per block
-constexpr int FPT = 4;        // frames per thread (one warp shares them)
-constexpr int THREADS = 256;  // 8 warps x FPT = FT frames
-constexpr int KJ = 9;         // bins per lane: KP = 32 * KJ = 288 >= n_freqs
-constexpr int KP = 32 * KJ;
-constexpr int NC = 8;         // basis rows staged per step
+struct WaveFrames {
+  const float* x;  // (batch, n)
+  int n, t_frames, hop;
+  float coeff;
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Round a float to T and back (round to nearest even, as JAX's astype).
-template <typename T> __device__ __forceinline__ float round_to(float v);
-template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__host__ __device__ inline int span_floats(int hop, int win) { return (FT - 1) * hop + win + NC; }
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-log_mel_wave_kernel(const float* __restrict__ x, const T* __restrict__ wr,
-                    const T* __restrict__ wi, const T* __restrict__ mel,
-                    float* __restrict__ out, int n, int t_frames, int hop, int win,
-                    int n_freqs, int n_mels, float coeff, int log_db, float log_floor) {
-  extern __shared__ float smem[];
-  const int span = span_floats(hop, win);
-  float* sig = smem;               // span floats (zero beyond the signal)
-  float* br = smem + span;         // NC x KP
-  float* bi = br + NC * KP;        // NC x KP
-  float* power = smem;             // FT x n_freqs, reuses the space after the DFT
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * FT;
-  const int s0 = t0 * hop;
-  const float* xb = x + (size_t)b * n;
-
-  // 1. waveform span -> preemphasis (f32, no contraction) -> rounded to T
-  for (int i = tid; i < span; i += THREADS) {
-    const int j = s0 + i;
-    float v = 0.f;
-    if (j < n) {
-      v = xb[j];
-      if (coeff > 0.f) {
-        const float prev = j > 0 ? xb[j - 1] : 0.f;
-        v = __fsub_rn(v, __fmul_rn(coeff, prev));
-      }
-    }
-    sig[i] = round_to<T>(v);
+  // x[s] - coeff * x[s - 1] in f32 (the caller gives 0 for x[-1]), no FMA contraction
+  __device__ __forceinline__ float preemph(float v, float prev) const {
+    return coeff > 0.f ? __fsub_rn(v, __fmul_rn(coeff, prev)) : v;
   }
 
-  // 2. windowed DFT: re/im for FPT frames x KJ bins per thread
-  const int f0 = warp * FPT;
-  float re[FPT][KJ], im[FPT][KJ];
-#pragma unroll
-  for (int q = 0; q < FPT; ++q)
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) re[q][j] = im[q][j] = 0.f;
-
-  for (int c0 = 0; c0 < win; c0 += NC) {
-    __syncthreads();  // signal written / previous basis rows consumed
-    for (int i = tid; i < NC * KP; i += THREADS) {
-      const int r = i / KP, k = i - r * KP, row = c0 + r;
-      float vr = 0.f, vi = 0.f;
-      if (row < win && k < n_freqs) {
-        vr = to_f(wr[row * n_freqs + k]);
-        vi = to_f(wi[row * n_freqs + k]);
+  // `stage` (`cap` values of T) is scratch: the samples the tile's frames cover
+  // go there once, preemphasized and rounded, each waveform row's after the
+  // row's before it; the frames are then cut out of it.  Several passes where
+  // the scratch is too small for the whole tile.
+  template <int R, typename T>
+  __device__ __forceinline__ void fill(T* dst, int stride, int rows, int m0, int m_frames, int win,
+                                       T* stage, int cap) const {
+    constexpr int V = 16 / sizeof(T);     // values per 16-byte copy
+    const int tid = threadIdx.x, nthr = blockDim.x;
+    const int m_end = min(m0 + rows, m_frames);
+    const int span = (t_frames - 1) * hop + win;  // samples the frames of a whole row cover
+    const bool vec = hop % V == 0 && win % V == 0 && stride % V == 0;
+    for (int m = m0; m < m_end;) {
+      const int b0 = m / t_frames, base = (m - b0 * t_frames) * hop;
+      // where frame f >= m starts in the scratch: rows follow each other `span` apart
+      auto offset = [&](int f) {
+        const int b = f / t_frames;
+        return (b - b0) * span + (f - b * t_frames) * hop - base;
+      };
+      int me = m_end;  // this pass: frames [m, me), as many as fit (frame m always does)
+      if (offset(m_end - 1) + win > cap) {
+        int lo = m, hi = m_end - 1;
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) >> 1;
+          if (offset(mid) + win <= cap) lo = mid; else hi = mid;
+        }
+        me = lo + 1;
       }
-      br[i] = vr;
-      bi[i] = vi;
-    }
-    __syncthreads();
+      const int ext = offset(me - 1) + win;
+
+      // 1. scratch value q is sample s of row b0 + r, with q + base = r * span + s;
+      // four a thread where they are 16 bytes of one row, else one
+      if (n % 4 == 0 && hop % 4 == 0 && win % 4 == 0 && dft::aligned16(x)) {
+        constexpr int U = 8;  // groups of four a thread has in flight
+        int r = (4 * tid + base) / span, s = 4 * tid + base - r * span;
+        for (int q0 = 4 * tid; q0 < ext; q0 += 4 * U * nthr) {
+          float4 v[U];
+          float prev[U];
 #pragma unroll
-    for (int r = 0; r < NC; ++r) {
-      float xs[FPT];
+          for (int u = 0; u < U; ++u) {  // no branch around a load: they start together
+            const float* p = x + (size_t)(b0 + r) * n + s;
+            const bool in = q0 + 4 * u * nthr < ext;
+            v[u] = __ldg(reinterpret_cast<const float4*>(in ? p : x));
+            prev[u] = in && s > 0 ? __ldg(p - 1) : 0.f;
+            for (s += 4 * nthr; s >= span; s -= span) ++r;
+          }
 #pragma unroll
-      for (int q = 0; q < FPT; ++q) xs[q] = sig[(f0 + q) * hop + c0 + r];
+          for (int u = 0; u < U; ++u) {
+            const int q = q0 + 4 * u * nthr;
+            if (q >= ext) break;
+            dft::store4(stage + q, make_float4(preemph(v[u].x, prev[u]), preemph(v[u].y, v[u].x),
+                                               preemph(v[u].z, v[u].y), preemph(v[u].w, v[u].z)));
+          }
+        }
+      } else {
+        constexpr int U = 8;  // samples a thread has in flight
+        int r = (tid + base) / span, s = tid + base - r * span;
+        for (int q0 = tid; q0 < ext; q0 += U * nthr) {
+          float v[U], prev[U];
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const float vr = br[r * KP + lane + 32 * j];
-        const float vi = bi[r * KP + lane + 32 * j];
+          for (int u = 0; u < U; ++u) {
+            const float* p = x + (size_t)(b0 + r) * n + s;
+            const bool in = q0 + u * nthr < ext;
+            v[u] = __ldg(in ? p : x);
+            prev[u] = in && s > 0 ? __ldg(p - 1) : 0.f;
+            for (s += nthr; s >= span; s -= span) ++r;
+          }
 #pragma unroll
-        for (int q = 0; q < FPT; ++q) {
-          re[q][j] = fmaf(xs[q], vr, re[q][j]);
-          im[q][j] = fmaf(xs[q], vi, im[q][j]);
+          for (int u = 0; u < U; ++u) {
+            const int q = q0 + u * nthr;
+            if (q >= ext) break;
+            stage[q] = dft::cvt<T>(preemph(v[u], prev[u]));
+          }
         }
       }
+      __syncthreads();
+
+      // 2. frame f, sample c is scratch value offset(f) + c.  A warp copies a
+      // frame at a time, 16 bytes a lane where every frame starts on a 16-byte
+      // boundary, else value by value; its frames' rows are tracked without a
+      // division a frame.
+      constexpr int FB = 4;  // frames a warp has in flight
+      const int warp = tid >> 5, lane = tid & 31, warps = nthr >> 5;
+      int b = (m + warp) / t_frames, t = m + warp - b * t_frames;
+      for (int f = m + warp; f < me; f += FB * warps) {
+        const T* from[FB];
+#pragma unroll
+        for (int i = 0; i < FB; ++i) {  // frames f + i * warps (used only where < me)
+          from[i] = stage + (b - b0) * span + t * hop - base;
+          for (t += warps; t >= t_frames; t -= t_frames) ++b;
+        }
+        T* to = dst + (size_t)(f - m0) * stride;
+        if (vec) {
+          for (int c = lane * V; c < win; c += 32 * V) {
+            uint4 v[FB];
+#pragma unroll
+            for (int i = 0; i < FB; ++i)
+              if (f + i * warps < me) v[i] = *reinterpret_cast<const uint4*>(from[i] + c);
+#pragma unroll
+            for (int i = 0; i < FB; ++i)
+              if (f + i * warps < me)
+                *reinterpret_cast<uint4*>(to + (size_t)i * warps * stride + c) = v[i];
+          }
+        } else {
+          for (int c = lane; c < win; c += 32) {
+            T v[FB];
+#pragma unroll
+            for (int i = 0; i < FB; ++i)
+              if (f + i * warps < me) v[i] = from[i][c];
+#pragma unroll
+            for (int i = 0; i < FB; ++i)
+              if (f + i * warps < me) to[(size_t)i * warps * stride + c] = v[i];
+          }
+        }
+      }
+      __syncthreads();  // the scratch is free for the next pass, or for its owner
+      m = me;
     }
   }
-  __syncthreads();  // all reads of sig/br/bi done before power overwrites them
-
-  // 3. power, rounded to T
-#pragma unroll
-  for (int q = 0; q < FPT; ++q)
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      const int k = lane + 32 * j;
-      if (k < n_freqs)
-        power[(f0 + q) * n_freqs + k] =
-            round_to<T>(__fadd_rn(__fmul_rn(re[q][j], re[q][j]), __fmul_rn(im[q][j], im[q][j])));
-    }
-  __syncthreads();
-
-  // 4. mel product and log
-  for (int i = tid; i < FT * n_mels; i += THREADS) {
-    const int f = i / n_mels, m = i - f * n_mels, t = t0 + f;
-    if (t >= t_frames) break;  // i only grows, so every later i is past the end too
-    const float* pw = power + f * n_freqs;
-    float acc = 0.f;
-    for (int k = 0; k < n_freqs; ++k) acc = fmaf(pw[k], to_f(mel[k * n_mels + m]), acc);
-    out[((size_t)b * t_frames + t) * n_mels + m] =
-        log_db ? 10.f * log10f(fmaxf(acc, log_floor)) : logf(acc + log_floor);
-  }
-}
-
-template <typename T>
-int launch(const void* x, const void* wr, const void* wi, const void* mel, void* out, int batch,
-           int n, int t_frames, int hop, int win, int n_freqs, int n_mels, float coeff,
-           int log_db, float log_floor, cudaStream_t stream) {
-  const int span = span_floats(hop, win);
-  int floats = span + 2 * NC * KP;
-  if (FT * n_freqs > floats) floats = FT * n_freqs;
-  const size_t smem = (size_t)floats * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(log_mel_wave_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((t_frames + FT - 1) / FT, batch);
-  log_mel_wave_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const T*>(wr), static_cast<const T*>(wi),
-      static_cast<const T*>(mel), static_cast<float*>(out), n, t_frames, hop, win, n_freqs,
-      n_mels, coeff, log_db, log_floor);
-  return (int)cudaGetLastError();
-}
+};
 
 }  // namespace
 
-// x (batch, n) f32; wr, wi (win, n_freqs) and mel (n_freqs, n_mels) in the
-// compute type (bf16 when `bf16` is nonzero, else f32); out (batch, t_frames,
-// n_mels) f32.  All contiguous on the current device.  Returns a cudaError_t.
+// x (batch, n) f32; out (batch, t_frames, n_mels) f32.  bf16 compute (`bf16`
+// nonzero): `packed` from ops/fbank.py:pack_dft_operands, wr/wi/mel unused.
+// f32 compute: wr, wi (win, n_freqs) and mel (n_freqs, n_mels) f32, `packed`
+// unused.  All contiguous on the current device.  Returns a cudaError_t.
 extern "C" int log_mel_wave_launch(const void* x, const void* wr, const void* wi, const void* mel,
-                                   void* out, int batch, int n, int t_frames, int hop, int win,
-                                   int n_freqs, int n_mels, float coeff, int log_db,
-                                   float log_floor, int bf16, void* stream) {
-  if (batch <= 0 || batch > 65535 || t_frames <= 0 || n_freqs > KP || hop <= 0 || win <= 0 ||
-      (t_frames - 1) * hop + win > n)
+                                   const void* packed, void* out, int batch, int n, int t_frames,
+                                   int hop, int win, int n_freqs, int n_mels, float coeff,
+                                   int log_db, float log_floor, int bf16, void* stream) {
+  if (batch <= 0 || t_frames <= 0 || n_freqs <= 0 || n_mels <= 0 || hop <= 0 || win <= 0 ||
+      (long long)(t_frames - 1) * hop + win > n || (long long)batch * t_frames > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  const WaveFrames src{static_cast<const float*>(x), n, t_frames, hop, coeff};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(x, wr, wi, mel, out, batch, n, t_frames, hop, win, n_freqs,
-                                 n_mels, coeff, log_db, log_floor, s);
-  return launch<float>(x, wr, wi, mel, out, batch, n, t_frames, hop, win, n_freqs, n_mels, coeff,
-                       log_db, log_floor, s);
+    return dft::launch_mma(src, packed, out, batch * t_frames, win, n_freqs, n_mels, log_db,
+                           log_floor, s);
+  return dft::launch_fma(src, wr, wi, mel, out, batch * t_frames, win, n_freqs, n_mels, log_db,
+                         log_floor, s);
 }

@@ -83,6 +83,73 @@ def bases(cfg: FrontendConfig, device: torch.device, dtype: torch.dtype
     )
 
 
+# Geometry of the packed operands: csrc/dft_mma.cuh reads exactly this.
+DFT_BINS = 32        # bins per chunk (one wgmma of n = 64: 32 rows of re, 32 of im)
+DFT_MEL_GROUP = 80   # mels per block (one wgmma of n = 80)
+MMA_MAX_WIN = 576    # the bf16 kernel's frame tile and one chunk of bases fill shared memory
+FMA_MAX_FREQS = 288  # the f32 kernel keeps 9 bins a lane in registers
+
+
+def _round_up(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
+def _core_matrices(a: torch.Tensor) -> torch.Tensor:
+    """(..., rows, k) -> (..., rows·k) in the order a ``wgmma`` descriptor
+    without swizzle reads an operand: core matrices of 8 rows x 8 k, each 64
+    contiguous values, ordered (row // 8, k // 8, row % 8, k % 8)."""
+    *lead, rows, k = a.shape
+    a = a.reshape(*lead, rows // 8, 8, k // 8, 8).transpose(-3, -2)
+    return a.reshape(*lead, rows * k)
+
+
+def pack_dft_operands(wr: torch.Tensor, wi: torch.Tensor, mel: torch.Tensor) -> torch.Tensor:
+    """Pack the DFT bases (win, n_freqs) and the mel matrix (n_freqs,
+    n_mels) as the tensor-core kernels stream them, one row per chunk of
+    32 bins.  First the chunk's 64 basis rows (32 of ``wr.T``, then 32 of
+    ``wi.T``) over K = win padded to a multiple of 16.  Then, for each
+    group of 80 mels (n_mels padded to whole groups), the group's 80 rows
+    of ``mel.T`` over the chunk's 32 bins.  Both in the order of
+    :func:`_core_matrices`.  All padding is zero, so products on the packed
+    operands add exact zeros.  Returns (n_chunks, 64·kp + nmp·32) in the
+    inputs' dtype."""
+    win, n_freqs = wr.shape
+    n_mels = mel.shape[1]
+    kp = _round_up(win, 16)
+    n_chunks = _round_up(n_freqs, DFT_BINS) // DFT_BINS
+    nmp = _round_up(n_mels, DFT_MEL_GROUP)
+    basis = wr.new_zeros((2, n_chunks * DFT_BINS, kp))
+    basis[0, :n_freqs, :win] = wr.T
+    basis[1, :n_freqs, :win] = wi.T
+    basis = basis.reshape(2, n_chunks, DFT_BINS, kp).transpose(0, 1)  # chunk, re/im, row, k
+    basis = _core_matrices(basis.reshape(n_chunks, 2 * DFT_BINS, kp))
+    melt = mel.new_zeros((nmp, n_chunks * DFT_BINS))
+    melt[:n_mels, :n_freqs] = mel.T
+    melt = melt.reshape(nmp // DFT_MEL_GROUP, DFT_MEL_GROUP, n_chunks, DFT_BINS).permute(2, 0, 1, 3)
+    melp = _core_matrices(melt).reshape(n_chunks, -1)  # chunk, group, then 80 rows x 32 bins
+    return torch.cat([basis, melp], dim=1).contiguous()
+
+
+@lru_cache(maxsize=16)
+def packed_bases(cfg: FrontendConfig, device: torch.device) -> torch.Tensor:
+    """:func:`bases` in bfloat16, packed for the tensor-core kernels."""
+    return pack_dft_operands(*bases(cfg, device, torch.bfloat16))
+
+
+def check_kernel_range(cfg: FrontendConfig) -> None:
+    """Raise for a configuration the log-mel kernels cannot take."""
+    if cfg.compute_dtype == "bfloat16":
+        if cfg.win_length > MMA_MAX_WIN:
+            raise ValueError(f"win_length {cfg.win_length} > {MMA_MAX_WIN}: the bfloat16 log-mel "
+                             "kernel's frame tile does not fit shared memory")
+    elif cfg.compute_dtype == "float32":
+        if cfg.n_fft // 2 + 1 > FMA_MAX_FREQS:
+            raise ValueError(f"n_fft {cfg.n_fft} gives more than {FMA_MAX_FREQS} bins: the "
+                             "float32 log-mel kernel keeps them in registers")
+    else:
+        raise ValueError(f"kernel supports float32/bfloat16 compute, not {cfg.compute_dtype}")
+
+
 def log_of_mel(melspec: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     if cfg.log_scale == "db":  # torch/SB convention: 10·log10(clamp(x, amin))
         return 10.0 * torch.log10(torch.clamp(melspec, min=cfg.log_floor))

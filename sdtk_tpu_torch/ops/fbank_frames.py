@@ -24,15 +24,20 @@ from dataclasses import replace
 import torch
 
 from ..utils import build
-from .fbank import FrontendConfig, bases, mask_for, normalize, preemphasize
+from .fbank import (FrontendConfig, bases, check_kernel_range, mask_for, normalize,
+                    packed_bases, preemphasize)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]
 JAX_MEL_FMIN = 20.0  # fbank_frames_pallas builds its mel bank at this fmin
 
 
+def _jax_cfg(cfg: FrontendConfig) -> FrontendConfig:
+    return replace(cfg, mel_fmin=JAX_MEL_FMIN)
+
+
 def _bases(cfg: FrontendConfig, device: torch.device, dtype: torch.dtype):
-    return bases(replace(cfg, mel_fmin=JAX_MEL_FMIN), device, dtype)
+    return bases(_jax_cfg(cfg), device, dtype)
 
 
 def fbank_frames_plain(frames: torch.Tensor, cfg: FrontendConfig = FrontendConfig()
@@ -56,18 +61,20 @@ def fbank_frames_cuda(frames: torch.Tensor, cfg: FrontendConfig = FrontendConfig
                          f"{tuple(frames.shape)} on {frames.device}")
     if frames.shape[1] != cfg.win_length:
         raise ValueError(f"frames of {frames.shape[1]} samples, cfg.win_length {cfg.win_length}")
-    if cfg.compute_dtype not in ("float32", "bfloat16"):
-        raise ValueError(f"kernel supports float32/bfloat16 compute, not {cfg.compute_dtype}")
+    check_kernel_range(cfg)
     frames = frames.contiguous()
     m = frames.shape[0]
     out = torch.empty((m, cfg.n_mels), dtype=torch.float32, device=frames.device)
     if m == 0:
         return out
-    wr, wi, mel = _bases(cfg, frames.device, cfg.torch_dtype)
+    bf16 = cfg.compute_dtype == "bfloat16"
+    # bf16: the packed operands for the tensor cores; f32: wr, wi, mel as they are
+    operands = ((None, None, None, packed_bases(_jax_cfg(cfg), frames.device)) if bf16
+                else (*_bases(cfg, frames.device, torch.float32), None))
     build.launch("fbank_frames", _ARGTYPES,
-                 frames.data_ptr(), wr.data_ptr(), wi.data_ptr(), mel.data_ptr(), out.data_ptr(),
-                 m, cfg.win_length, wr.shape[1], cfg.n_mels, float(cfg.log_floor),
-                 int(cfg.compute_dtype == "bfloat16"),
+                 frames.data_ptr(), *(a.data_ptr() if a is not None else None for a in operands),
+                 out.data_ptr(), m, cfg.win_length, cfg.n_fft // 2 + 1, cfg.n_mels,
+                 float(cfg.log_floor), int(bf16),
                  torch.cuda.current_stream(frames.device).cuda_stream)
     fbank_frames.launches += 1
     return out

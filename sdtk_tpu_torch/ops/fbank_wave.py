@@ -22,11 +22,11 @@ import torch
 
 from ..utils import build
 from . import melbank
-from .fbank import (FrontendConfig, bases, mask_for, normalize, pad_centered,
-                    preemphasize, raw_log_mel)
+from .fbank import (FrontendConfig, bases, check_kernel_range, mask_for, normalize,
+                    pad_centered, packed_bases, preemphasize, raw_log_mel)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P]
 
 
 def log_mel_wave_plain(x: torch.Tensor, cfg: FrontendConfig, coeff: float) -> torch.Tensor:
@@ -42,21 +42,22 @@ def log_mel_wave_cuda(x: torch.Tensor, cfg: FrontendConfig, coeff: float) -> tor
     if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 2:
         raise ValueError(f"expected a 2-D float32 CUDA tensor, got {x.dtype} {tuple(x.shape)} "
                          f"on {x.device}")
-    if cfg.compute_dtype not in ("float32", "bfloat16"):
-        raise ValueError(f"kernel supports float32/bfloat16 compute, not {cfg.compute_dtype}")
+    check_kernel_range(cfg)
     x = x.contiguous()
     b, n = x.shape
     t = melbank.num_frames(n, cfg.win_length, cfg.hop_length)  # center=False framing
     if t <= 0:
         raise ValueError(f"signal of {n} samples is shorter than one window")
-    wr, wi, mel = bases(cfg, x.device, cfg.torch_dtype)
+    bf16 = cfg.compute_dtype == "bfloat16"
+    # bf16: the packed operands for the tensor cores; f32: wr, wi, mel as they are
+    operands = ((None, None, None, packed_bases(cfg, x.device)) if bf16
+                else (*bases(cfg, x.device, torch.float32), None))
     out = torch.empty((b, t, cfg.n_mels), dtype=torch.float32, device=x.device)
     build.launch(
         "log_mel_wave", _ARGTYPES,
-        x.data_ptr(), wr.data_ptr(), wi.data_ptr(), mel.data_ptr(), out.data_ptr(),
-        b, n, t, cfg.hop_length, cfg.win_length, wr.shape[1], cfg.n_mels,
-        float(coeff), int(cfg.log_scale == "db"), float(cfg.log_floor),
-        int(cfg.compute_dtype == "bfloat16"),
+        x.data_ptr(), *(a.data_ptr() if a is not None else None for a in operands),
+        out.data_ptr(), b, n, t, cfg.hop_length, cfg.win_length, cfg.n_fft // 2 + 1, cfg.n_mels,
+        float(coeff), int(cfg.log_scale == "db"), float(cfg.log_floor), int(bf16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     log_mel_wave.launches += 1

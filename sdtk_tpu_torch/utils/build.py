@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports a plain C launcher and is compiled on
 first use into ``sdtk_tpu_torch/_build/lib<name>-<hash>.so`` for
-``sm_90a``.  The hash covers the source and the flags, so an edited
-kernel rebuilds.  Nothing here falls back: a missing ``nvcc`` or a
-failed compile raises.
+``sm_90a`` with ``-I csrc``.  The hash covers the source, every header
+under ``csrc`` and the flags, so an edited kernel or header rebuilds.
+Nothing here falls back: a missing ``nvcc`` or a failed compile raises.
 """
 
 from __future__ import annotations
@@ -37,9 +37,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include any of them
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
@@ -49,7 +51,7 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 

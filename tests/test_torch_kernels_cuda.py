@@ -32,18 +32,22 @@ def _signal(b, n, seed=0):
 
 
 # Both sides sum exact products in f32; only the order may differ, which
-# can flip a bf16 rounding of one power bin (≤ ~4e-3 in ln): bars with 10x room.
+# can flip a bf16 rounding of one power bin (≤ ~8e-3 in ln): bars with 6x room.
+# (The bf16 kernel's hardware logarithm adds ~1e-6.)
+# (1, 400) is one frame; (32, 48000) the identify path's chunk of 3 s windows;
+# (200, 400) and (40, 1000) put 128 and 26 waveform rows into one tile of frames.
 @pytest.mark.parametrize("cfg,tol", [
     (fbank.FrontendConfig(), 0.05),
     (fbank.FrontendConfig(log_scale="db", mel_fmin=0.0), 0.25),
     (fbank.FrontendConfig(compute_dtype="float32"), 2e-3),
     (fbank.FrontendConfig(center=True, preemphasis=0.0), 0.05),
 ], ids=["bf16", "bf16-db-fmin0", "f32", "center-nopreemph"])
-@pytest.mark.parametrize("shape", [(3, 4000), (128, 16000)])
+@pytest.mark.parametrize("shape", [(3, 4000), (128, 16000), (32, 48000), (1, 400), (200, 400),
+                                   (40, 1000)])
 def test_log_mel_wave_kernel_matches_plain(cuda, cfg, tol, shape):
     x = _signal(*shape).to(cuda)
     lengths = torch.full((shape[0],), shape[1], device=cuda)
-    lengths[0] = 1234
+    lengths[0] = min(1234, shape[1])
     before = fbank_wave.log_mel_wave.launches
     got, gmask = fbank_wave.log_mel_wave(x, cfg, lengths=lengths)
     want, wmask = fbank.log_mel(x, cfg, lengths=lengths)
@@ -101,7 +105,7 @@ def test_identify_topk_kernel_matches_plain(cuda, w, n, d, k, dtype):
     (fbank.FrontendConfig(), 0.05),
     (fbank.FrontendConfig(compute_dtype="float32"), 2e-3),
 ], ids=["bf16", "f32"])
-@pytest.mark.parametrize("m", [12_544, 7, 33])
+@pytest.mark.parametrize("m", [12_544, 7, 33, 1, 63, 64, 65, 127, 129])
 def test_fbank_frames_kernel_matches_plain(cuda, cfg, tol, m):
     frames = (0.1 * _rows(m, cfg.win_length, 5)).to(cuda)
     before = fbank_frames.fbank_frames.launches
@@ -110,3 +114,36 @@ def test_fbank_frames_kernel_matches_plain(cuda, cfg, tol, m):
     assert fbank_frames.fbank_frames.launches == before + 1
     assert got.shape == (m, cfg.n_mels) and bool(torch.isfinite(got).all())
     assert float((got - fbank_frames.fbank_frames_plain(frames, cfg)).abs().max()) <= tol
+
+
+# Shapes off the default: a window that is no multiple of 16 with an odd hop,
+# more than one group of 80 mels, an n_fft of 1024 (bf16 only), a short n_fft
+# with 30 mels.  Same bars as above.
+@pytest.mark.parametrize("cfg,tol", [
+    (fbank.FrontendConfig(win_length=250, hop_length=101), 0.05),
+    (fbank.FrontendConfig(n_mels=96, log_scale="db"), 0.25),
+    (fbank.FrontendConfig(win_length=576, hop_length=160, n_fft=1024, n_mels=128), 0.05),
+    (fbank.FrontendConfig(win_length=200, hop_length=80, n_fft=256, n_mels=30), 0.05),
+    (fbank.FrontendConfig(win_length=250, hop_length=101, compute_dtype="float32"), 2e-3),
+], ids=["win250-hop101", "mels96-db", "win576-fft1024-mels128", "fft256-mels30", "win250-f32"])
+def test_log_mel_kernels_off_default_shapes(cuda, cfg, tol):
+    x = _signal(5, 9000).to(cuda)
+    got, _ = fbank_wave.log_mel_wave(x, cfg)
+    want, _ = fbank.log_mel(x, cfg)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= tol
+    frames = (0.1 * _rows(70, cfg.win_length, 6)).to(cuda)
+    got = fbank_frames.fbank_frames(frames, cfg)
+    torch.cuda.synchronize()
+    assert got.shape == (70, cfg.n_mels) and bool(torch.isfinite(got).all())
+    assert float((got - fbank_frames.fbank_frames_plain(frames, cfg)).abs().max()) <= tol
+
+
+def test_log_mel_kernels_raise_outside_their_range(cuda):
+    x = _signal(2, 4000).to(cuda)
+    with pytest.raises(ValueError, match="win_length 640"):
+        fbank_wave.log_mel_wave(x, fbank.FrontendConfig(win_length=640, n_fft=1024))
+    with pytest.raises(ValueError, match="n_fft 1024"):
+        fbank_frames.fbank_frames(x[:, :400].contiguous(),
+                                  fbank.FrontendConfig(compute_dtype="float32", n_fft=1024))
