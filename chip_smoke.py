@@ -61,7 +61,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# "tf32x3" is f32-accurate work at the card's fastest route for it: three
+# TF32 tensor-core products (3xTF32) per f32 product, 495 / 3 TFLOP/s.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 
 # Kernel vs plain, same inputs and compute dtype.  Both sum exact products
@@ -129,15 +131,17 @@ def with_device_time(row: dict, fn, kernel: str) -> dict:
 
 
 def mma_counts() -> dict:
-    """Tensor-core instructions in the two log-mel libraries' SASS
-    (``cuobjdump``): HMMA is ``mma.sync``, HGMMA is ``wgmma``."""
+    """Tensor-core instructions in the SASS of the two log-mel libraries
+    and of the identify top-k library (``cuobjdump``): HMMA is
+    ``mma.sync``, HGMMA is ``wgmma``."""
     from sdtk_tpu_torch.utils import build
 
+    names = ("log_mel_wave", "fbank_frames", "identify_topk")
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     if not os.path.exists(tool):
-        return {name: "not checked" for name in ("log_mel_wave", "fbank_frames")}
+        return {name: "not checked" for name in names}
     counts = {}
-    for name in ("log_mel_wave", "fbank_frames"):
+    for name in names:
         sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                               capture_output=True, text=True, timeout=120).stdout
         counts[name] = {op: sum(f" {op}." in line for line in sass.splitlines())
@@ -289,28 +293,32 @@ def phase_kernel_topk(device) -> dict:
     """K2: cosine -> max over windows -> top-k, at the identify phase's
     shape (32 windows x 8 192 profiles, k 192), at catalog scale (64 x
     100 000, k 64 and 128, f32 and bf16 profiles, and k 512, a whole tile
-    of survivors) and at a ragged 8 193 profiles with one window (bucketed
-    to 8 as the dispatcher buckets).  The survivor sets must equal the
-    plain version's."""
+    of survivors; and 512 columns, the x-vector width) and at a ragged
+    8 193 profiles with one window (bucketed to 8 as the dispatcher
+    buckets).  The survivor sets must equal the plain version's.  Device
+    time covers both passes (kernels named ``identify_topk_*``); the bound
+    counts f32-accurate products at the card's fastest route for them,
+    3xTF32 on the tensor cores."""
     import torch
     import torch.nn.functional as F
 
     from sdtk_tpu_torch.ops import topk, topk_fused
 
-    cases = [(32, IDENTIFY_N, 192, torch.float32)]
-    cases += [(64, 100_000, k, dt) for dt in (torch.float32, torch.bfloat16) for k in (64, 128)]
-    cases += [(64, 100_000, 512, torch.float32), (1, 8193, 64, torch.float32)]
+    cases = [(32, IDENTIFY_N, D, 192, torch.float32)]
+    cases += [(64, 100_000, D, k, dt) for dt in (torch.float32, torch.bfloat16) for k in (64, 128)]
+    cases += [(64, 100_000, D, 512, torch.float32), (1, 8193, D, 64, torch.float32),
+              (64, 100_000, 512, 64, torch.float32)]
     rows = {}
-    for w, n, k, dt in cases:
-        q = topk.bucket_windows(_gauss((w, D), w, device)).contiguous()
-        p = _gauss((n, D), n, device, dt)
+    for w, n, d, k, dt in cases:
+        q = topk.bucket_windows(_gauss((w, d), w, device)).contiguous()
+        p = _gauss((n, d), n, device, dt)
         s, i = topk_fused.identify_topk_cuda(q, p, k)
         ws, wi = topk.identify_topk_plain(q, p, k)
         torch.cuda.synchronize()
         err = float((s - ws).abs().max())
         same = set(i.tolist()) == set(wi.tolist())
         ordered = bool((s[:-1] >= s[1:]).all())
-        name = f"w{q.shape[0]}-n{n}-k{k}-{str(dt).split('.')[-1]}"
+        name = f"w{q.shape[0]}-n{n}-k{k}-{str(dt).split('.')[-1]}" + ("" if d == D else f"-d{d}")
         if not (same and ordered and err <= SCORE_TOL):
             raise AssertionError(f"identify_topk {name}: survivors equal {same}, "
                                  f"sorted {ordered}, max|d| {err}")
@@ -319,14 +327,14 @@ def phase_kernel_topk(device) -> dict:
             return torch.topk((F.normalize(q, dim=1) @ F.normalize(p.float(), dim=1).T).amax(0), k)
 
         nbytes = q.numel() * 4 + p.numel() * p.element_size() + k * (4 + 8)
-        flops = 2 * q.shape[0] * n * D + 2 * (q.shape[0] + n) * D
-        row = {"shape": [q.shape[0], n, D], "k": k, "profiles": str(dt).split(".")[-1],
+        flops = 2 * q.shape[0] * n * d + 2 * (q.shape[0] + n) * d
+        row = {"shape": [q.shape[0], n, d], "k": k, "profiles": str(dt).split(".")[-1],
                "survivors_equal": same, "max_abs_err": err, "tol": SCORE_TOL,
                "ms": cuda_ms(lambda: topk_fused.identify_topk_cuda(q, p, k)),
                "plain_ms": cuda_ms(lambda: topk.identify_topk_plain(q, p, k)),
-               "library_ms": cuda_ms(library), **bound(nbytes, flops)}
+               "library_ms": cuda_ms(library), **bound(nbytes, flops, "tf32x3")}
         row = with_device_time(row, lambda: topk_fused.identify_topk_cuda(q, p, k),
-                               "identify_topk_kernel")
+                               "identify_topk_")
         emit({"phase": "kernel", "name": "identify_topk", "config": name,
               "library": "torch.topk((F.normalize(q) @ F.normalize(p).T).amax(0), k)", **row})
         rows[name] = row

@@ -4,11 +4,14 @@ The port of the Pallas kernel
 ``sdtk_tpu/ops/research/topk_pallas.py:identify_topk_pallas``: cosine →
 max over windows → top-k per tile of profile rows, with the (W, N) score
 matrix never in device memory (``csrc/identify_topk.cu``; its header
-holds the design and the bound).  The wrapper merges the tiles'
-survivors, min(k, TILE) each, as the JAX wrapper merges with
-``lax.top_k``.  Keeping the global k in every tile (the whole tile when
-k >= TILE) makes the merge exact for any k, so the plain version is the
-global top-k of :func:`~.topk.identify_topk_plain`.
+holds the design and the bound).  The kernel runs in two passes: the
+window max m (N,) of every profile row, then the top min(k, TILE) of each
+TILE-row tile of m.  The wrapper merges the tiles' survivors, as the JAX
+wrapper merges with ``lax.top_k``.  Keeping the global k in every tile
+(the whole tile when k >= TILE) makes the merge exact for any k, so the
+plain version is the global top-k of :func:`~.topk.identify_topk_plain`;
+:func:`identify_topk_tiles_plain` spells out the two passes and the merge
+in plain PyTorch, for the tests.
 
 On a CPU tensor :func:`identify_topk_fused` runs the plain version; on a
 CUDA tensor it launches the kernel or raises, whatever k is (the JAX
@@ -23,18 +26,49 @@ import ctypes
 import torch
 
 from ..utils import build
+from .cosine import rsqrt_normalize
 from .topk import identify_topk_plain, select_topk
 
-TILE = 512  # profile rows per block (csrc/identify_topk.cu)
+TILE = 512  # profile rows per tile of the selection pass (csrc/identify_topk.cu)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+
+
+def window_max_plain(queries: torch.Tensor, profiles: torch.Tensor) -> torch.Tensor:
+    """Pass A in plain PyTorch: m_j = inv_p_j · max_w(qn_w · p_j), (N,)
+    float32, the profile's inverse norm applied after the window max."""
+    p = profiles.float()
+    inv_p = torch.rsqrt((p * p).sum(dim=1) + 1e-24)
+    return (rsqrt_normalize(queries) @ p.T).amax(dim=0) * inv_p
+
+
+def tile_select_plain(m: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass B in plain PyTorch: the top min(k, TILE) of each TILE-row tile
+    of ``m`` (rows past N at -inf), score descending, lower row first, as
+    (tiles, kc) scores and int64 rows."""
+    n, kc = m.shape[0], min(k, TILE)
+    tiles = -(-n // TILE)
+    padded = torch.full((tiles * TILE,), float("-inf"), dtype=m.dtype, device=m.device)
+    padded[:n] = m
+    s, order = torch.sort(padded.view(tiles, TILE), dim=1, descending=True, stable=True)
+    rows = order[:, :kc] + TILE * torch.arange(tiles, device=m.device)[:, None]
+    return s[:, :kc], rows
+
+
+def identify_topk_tiles_plain(queries: torch.Tensor, profiles: torch.Tensor, k: int = 64
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's algorithm in plain PyTorch: pass A, pass B, then the
+    wrapper's merge of the survivors."""
+    s, rows = tile_select_plain(window_max_plain(queries, profiles), k)
+    top, pos = select_topk(s.reshape(-1), min(k, profiles.shape[0]))
+    return top, rows.reshape(-1)[pos]
 
 
 def identify_topk_cuda(queries: torch.Tensor, profiles: torch.Tensor, k: int = 64
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on the current stream and merge its survivors:
-    same contract as :func:`~.topk.identify_topk_plain`, for CUDA tensors,
+    """Launch the kernel's two passes on the current stream and merge the
+    survivors: same contract as :func:`~.topk.identify_topk_plain`, for CUDA tensors,
     queries of any float type (read as f32), profiles f32 or bf16."""
     if queries.device.type != "cuda" or profiles.device != queries.device:
         raise ValueError(f"expected CUDA tensors on one device, got {queries.device} "
@@ -53,12 +87,13 @@ def identify_topk_cuda(queries: torch.Tensor, profiles: torch.Tensor, k: int = 6
     (w, d), n = q.shape, p.shape[0]
     if w == 0 or n == 0 or d == 0:
         raise ValueError(f"empty input: W={w}, N={n}, D={d}")
-    blocks, kc = -(-n // TILE), min(k, TILE)
-    cand_s = torch.empty((blocks, kc), dtype=torch.float32, device=q.device)
-    cand_i = torch.empty((blocks, kc), dtype=torch.int32, device=q.device)
-    build.launch("identify_topk", _ARGTYPES, q.data_ptr(), p.data_ptr(), cand_s.data_ptr(),
-                 cand_i.data_ptr(), w, n, d, kc, int(p.dtype == torch.bfloat16),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    tiles, kc = -(-n // TILE), min(k, TILE)
+    m = torch.empty(n, dtype=torch.float32, device=q.device)  # pass A's window maxima
+    cand_s = torch.empty((tiles, kc), dtype=torch.float32, device=q.device)
+    cand_i = torch.empty((tiles, kc), dtype=torch.int32, device=q.device)
+    build.launch("identify_topk", _ARGTYPES, q.data_ptr(), p.data_ptr(), m.data_ptr(),
+                 cand_s.data_ptr(), cand_i.data_ptr(), w, n, d, kc,
+                 int(p.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
     identify_topk_fused.launches += 1
     # Each tile is sorted (score desc, row asc) and tiles hold ascending
     # rows, so a stable sort of the survivors breaks ties by row.  Rows

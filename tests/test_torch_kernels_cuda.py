@@ -6,6 +6,8 @@ This file imports only torch and the port."""
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -88,6 +90,15 @@ def test_cosine_kernel_matches_plain(cuda, q, n, d):
     (16, 3000, 192, 512, torch.bfloat16),  # k = the tile: every row of a tile survives
     (8, 2000, 192, 700, torch.float32),
     (3, 130, 192, 512, torch.float32),
+    (64, 20_000, 512, 64, torch.float32),  # the x-vector width
+    (64, 5000, 512, 192, torch.bfloat16),
+    (512, 3000, 192, 64, torch.float32),  # a bucketed 10-minute query
+    (100, 1500, 33, 40, torch.float32),  # ragged chunks: scalar copies
+    (7, 900, 7, 9, torch.bfloat16),
+    (16, 1000, 7, 12, torch.float32),
+    (8, 1, 192, 64, torch.float32),  # one profile row
+    (32, 8192, 192, 192, torch.bfloat16),
+    (3, 700, 1100, 20, torch.float32),  # D past one query slab of 512
 ])
 def test_identify_topk_kernel_matches_plain(cuda, w, n, d, k, dtype):
     qs, ps = _rows(w, d, 3).to(cuda), _rows(n, d, 4, dtype).to(cuda)
@@ -99,6 +110,22 @@ def test_identify_topk_kernel_matches_plain(cuda, w, n, d, k, dtype):
     assert s.shape == (min(k, n),) and set(i.tolist()) == set(wi.tolist())
     assert bool((s[:-1] >= s[1:]).all())
     assert float((s - ws).abs().max()) <= 1e-5
+
+
+def test_identify_topk_launches_both_passes(cuda):
+    """One call runs the window-max pass and the tile-select pass, each a
+    kernel whose name starts with identify_topk_."""
+    from torch.profiler import ProfilerActivity, profile
+
+    qs, ps = _rows(32, 192, 3).to(cuda), _rows(8192, 192, 4).to(cuda)
+    topk_fused.identify_topk_cuda(qs, ps, 64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        topk_fused.identify_topk_cuda(qs, ps, 64)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    for kernel in ("identify_topk_max", "identify_topk_select"):
+        assert any(re.search(rf"(^|[\s:]){kernel}\b", key) for key in names), (kernel, names)
 
 
 @pytest.mark.parametrize("cfg,tol", [
