@@ -40,7 +40,10 @@ shapes their path gives them and at the shapes named beside them.  The two
 log-mel kernels run their bf16 instances on the tensor cores; their
 CUDA-core predecessors took 0.4121 ms at (128, 16000) and 0.3361 ms at
 (12544, 400) by the same CUDA-event timing (NVIDIA H100 80GB HBM3,
-700 W; PERF.md).  Then
+700 W; PERF.md).  The identify top-k runs its products on the tensor
+cores in 3xTF32 (f32-accurate); its single-kernel CUDA-core predecessor
+took 0.3470 ms on the device at (64, 100 000, 192) f32 (same card;
+PERF.md).  Then
 the ``kernels`` line, the card's name and power limit as ``nvidia-smi``
 prints them, and ``{"ok": true, "device": {...}}`` last.
 """

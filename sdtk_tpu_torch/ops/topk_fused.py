@@ -32,7 +32,7 @@ from .topk import identify_topk_plain, select_topk
 TILE = 512  # profile rows per tile of the selection pass (csrc/identify_topk.cu)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 
 
 def window_max_plain(queries: torch.Tensor, profiles: torch.Tensor) -> torch.Tensor:
@@ -88,11 +88,14 @@ def identify_topk_cuda(queries: torch.Tensor, profiles: torch.Tensor, k: int = 6
     if w == 0 or n == 0 or d == 0:
         raise ValueError(f"empty input: W={w}, N={n}, D={d}")
     tiles, kc = -(-n // TILE), min(k, TILE)
-    m = torch.empty(n, dtype=torch.float32, device=q.device)  # pass A's window maxima
+    # scratch: the queries normalized and split for 3xTF32 (rows padded to
+    # a multiple of 4), and pass A's window maxima
+    qsplit = torch.empty((2, w, -(-d // 4) * 4), dtype=torch.float32, device=q.device)
+    m = torch.empty(n, dtype=torch.float32, device=q.device)
     cand_s = torch.empty((tiles, kc), dtype=torch.float32, device=q.device)
     cand_i = torch.empty((tiles, kc), dtype=torch.int32, device=q.device)
-    build.launch("identify_topk", _ARGTYPES, q.data_ptr(), p.data_ptr(), m.data_ptr(),
-                 cand_s.data_ptr(), cand_i.data_ptr(), w, n, d, kc,
+    build.launch("identify_topk", _ARGTYPES, q.data_ptr(), p.data_ptr(), qsplit.data_ptr(),
+                 m.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(), w, n, d, kc,
                  int(p.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
     identify_topk_fused.launches += 1
     # Each tile is sorted (score desc, row asc) and tiles hold ascending

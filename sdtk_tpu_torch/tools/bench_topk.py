@@ -6,9 +6,10 @@ the library call for the same function.
 At the identify shape (32 windows x 8 192 profiles x 192, k 192) and at
 catalog scale (64 x 100 000 x 192, k 64, f32 and bf16 profiles; and
 x 512 columns, f32) it prints, from ``torch.profiler`` (mean of 20
-calls): the device time of pass A (``identify_topk_max``), of pass B
-(``identify_topk_select``) and of the merge (every other kernel of the
-wrapper call: the sort of the survivors and the gathers); the device time
+calls): the device time of the queries' split (``identify_topk_split``),
+of pass A (``identify_topk_max``), of pass B (``identify_topk_select``)
+and of the merge (every other kernel of the wrapper call: the sort of the
+survivors and the gathers); the device time
 of the library product ``F.normalize(q) @ F.normalize(p).T`` alone and of
 the whole library call ``torch.topk(... .amax(0), k)``; and the CUDA-event
 times of the wrapper and of the library call (median of 30, after 5
@@ -111,10 +112,11 @@ def bench(card: str) -> None:
         by_kernel = device_ms_by_kernel(kernel)
         pass_a = sum(v for key, v in by_kernel.items() if "identify_topk_max" in key)
         pass_b = sum(v for key, v in by_kernel.items() if "identify_topk_select" in key)
+        split = sum(v for key, v in by_kernel.items() if "identify_topk_split" in key)
         print(json.dumps({
             "nvidia_smi": card, "shape": name, "w": w, "n": n, "d": d, "k": k, "profiles": dtype,
-            "pass_a_device_ms": pass_a, "pass_b_device_ms": pass_b,
-            "merge_device_ms": sum(by_kernel.values()) - pass_a - pass_b,
+            "split_device_ms": split, "pass_a_device_ms": pass_a, "pass_b_device_ms": pass_b,
+            "merge_device_ms": sum(by_kernel.values()) - split - pass_a - pass_b,
             "kernel_device_ms": sum(by_kernel.values()),
             "library_product_device_ms": sum(device_ms_by_kernel(lambda: qn @ pn.T).values()),
             "library_device_ms": sum(device_ms_by_kernel(library).values()),
@@ -143,8 +145,7 @@ def phase_clocks(card: str) -> None:
         rc = build.load_library("identify_topk").identify_topk_phase_clocks_read(clocks)
         if rc:
             raise RuntimeError(f"identify_topk_phase_clocks_read: CUDA error {rc}")
-        tiles = -(-n // 64)
-        print(json.dumps({"nvidia_smi": card, "phase_clocks": "catalog", "tiles": tiles,
+        print(json.dumps({"nvidia_smi": card, "phase_clocks": "catalog",
                           **dict(zip(PHASES, list(clocks))), "total": sum(list(clocks)[:6])}),
               flush=True)
     finally:

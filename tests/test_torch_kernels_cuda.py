@@ -113,8 +113,8 @@ def test_identify_topk_kernel_matches_plain(cuda, w, n, d, k, dtype):
 
 
 def test_identify_topk_launches_both_passes(cuda):
-    """One call runs the window-max pass and the tile-select pass, each a
-    kernel whose name starts with identify_topk_."""
+    """One call runs the queries' split, the window-max pass and the
+    tile-select pass, each a kernel whose name starts with identify_topk_."""
     from torch.profiler import ProfilerActivity, profile
 
     qs, ps = _rows(32, 192, 3).to(cuda), _rows(8192, 192, 4).to(cuda)
@@ -124,7 +124,7 @@ def test_identify_topk_launches_both_passes(cuda):
         topk_fused.identify_topk_cuda(qs, ps, 64)
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages()]
-    for kernel in ("identify_topk_max", "identify_topk_select"):
+    for kernel in ("identify_topk_split", "identify_topk_max", "identify_topk_select"):
         assert any(re.search(rf"(^|[\s:]){kernel}\b", key) for key in names), (kernel, names)
 
 
