@@ -4,7 +4,8 @@ The port of the Pallas kernel
 ``sdtk_tpu/ops/research/topk_pallas.py:identify_topk_pallas``: cosine →
 max over windows → top-k per tile of profile rows, with the (W, N) score
 matrix never in device memory (``csrc/identify_topk.cu``; its header
-holds the design and the bound).  The kernel runs in two passes: the
+holds the design and the bound).  After a small kernel that normalizes
+the queries and splits them for 3xTF32, the kernel runs in two passes: the
 window max m (N,) of every profile row, then the top min(k, TILE) of each
 TILE-row tile of m.  The wrapper merges the tiles' survivors, as the JAX
 wrapper merges with ``lax.top_k``.  Keeping the global k in every tile
