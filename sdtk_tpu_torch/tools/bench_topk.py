@@ -161,9 +161,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="SM clocks by phase in pass A's first block (catalog scale, f32)")
     args = ap.parse_args(argv)
     if args.trees:
-        rc = 0
+        rc, card = 0, smi("name,power.limit")
         for tree in args.trees:
-            print(json.dumps({"tree": tree}), flush=True)
+            print(json.dumps({"nvidia_smi": card, "tree": tree}), flush=True)
             cmd = [sys.executable, "-m", "sdtk_tpu_torch.tools.bench_topk"]
             env = {**os.environ, "PYTHONPATH": os.path.abspath(tree)}
             rc |= subprocess.run(cmd + (["--phases"] if args.phases else []), cwd=tree,
