@@ -66,7 +66,10 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3.
 # "tf32x3" is f32-accurate work at the card's fastest route for it: three
 # TF32 tensor-core products (3xTF32) per f32 product, 495 / 3 TFLOP/s.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
+# "tf32x2" is the same with one operand exact in TF32 (bf16 values, say):
+# two products, 495 / 2 TFLOP/s.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3,
+              "tf32x2": 495e12 / 2}
 PEAK_BYTES = 3.35e12
 
 # Kernel vs plain, same inputs and compute dtype.  Both sum exact products
@@ -301,7 +304,8 @@ def phase_kernel_topk(device) -> dict:
     buckets).  The survivor sets must equal the plain version's.  Device
     time covers both passes (kernels named ``identify_topk_*``); the bound
     counts f32-accurate products at the card's fastest route for them,
-    3xTF32 on the tensor cores."""
+    3xTF32 on the tensor cores, or two TF32 products where the profiles are
+    bf16 (exact in TF32, so they have no small half)."""
     import torch
     import torch.nn.functional as F
 
@@ -335,7 +339,8 @@ def phase_kernel_topk(device) -> dict:
                "survivors_equal": same, "max_abs_err": err, "tol": SCORE_TOL,
                "ms": cuda_ms(lambda: topk_fused.identify_topk_cuda(q, p, k)),
                "plain_ms": cuda_ms(lambda: topk.identify_topk_plain(q, p, k)),
-               "library_ms": cuda_ms(library), **bound(nbytes, flops, "tf32x3")}
+               "library_ms": cuda_ms(library),
+               **bound(nbytes, flops, "tf32x3" if dt == torch.float32 else "tf32x2")}
         row = with_device_time(row, lambda: topk_fused.identify_topk_cuda(q, p, k),
                                "identify_topk_")
         emit({"phase": "kernel", "name": "identify_topk", "config": name,

@@ -89,22 +89,23 @@ def identify_topk_cuda(queries: torch.Tensor, profiles: torch.Tensor, k: int = 6
     if w == 0 or n == 0 or d == 0:
         raise ValueError(f"empty input: W={w}, N={n}, D={d}")
     tiles, kc = -(-n // TILE), min(k, TILE)
-    # scratch: the queries normalized and split for 3xTF32 (rows padded to
-    # a multiple of 4), and pass A's window maxima
-    qsplit = torch.empty((2, w, -(-d // 4) * 4), dtype=torch.float32, device=q.device)
-    m = torch.empty(n, dtype=torch.float32, device=q.device)
-    cand_s = torch.empty((tiles, kc), dtype=torch.float32, device=q.device)
-    cand_i = torch.empty((tiles, kc), dtype=torch.int32, device=q.device)
-    build.launch("identify_topk", _ARGTYPES, q.data_ptr(), p.data_ptr(), qsplit.data_ptr(),
-                 m.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(), w, n, d, kc,
+    # One scratch buffer, carved into the queries normalized and split for
+    # 3xTF32 (rows padded to a multiple of 4; first, so 16-byte aligned),
+    # pass B's survivor rows (int64) and scores, and pass A's window maxima.
+    nq, nc = 2 * w * (-(-d // 4) * 4), tiles * kc
+    scratch = torch.empty(nq + 3 * nc + n, dtype=torch.float32, device=q.device)
+    cand_i = scratch[nq:nq + 2 * nc].view(torch.int64)
+    cand_s = scratch[nq + 2 * nc:nq + 3 * nc]
+    base = scratch.data_ptr()
+    build.launch("identify_topk", _ARGTYPES, q.data_ptr(), p.data_ptr(), base,
+                 base + 4 * (nq + 3 * nc), cand_s.data_ptr(), cand_i.data_ptr(), w, n, d, kc,
                  int(p.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
     identify_topk_fused.launches += 1
     # Each tile is sorted (score desc, row asc) and tiles hold ascending
     # rows, so a stable sort of the survivors breaks ties by row.  Rows
     # past N sit at -inf behind the min(k, N) real rows taken.
-    s, pos = select_topk(cand_s.reshape(-1), min(k, n))
-    return s, cand_i.reshape(-1)[pos].long()
-
+    s, pos = select_topk(cand_s, min(k, n))
+    return s, cand_i[pos]
 
 def identify_topk_fused(queries: torch.Tensor, profiles: torch.Tensor, k: int = 64
                         ) -> tuple[torch.Tensor, torch.Tensor]:

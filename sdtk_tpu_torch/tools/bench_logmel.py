@@ -25,30 +25,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
-
-def smi(query: str) -> str:
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
-def device_ms(fn, reps: int = 20) -> float:
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(float(getattr(e, "self_device_time_total", 0.0)
-                         or getattr(e, "self_cuda_time_total", 0.0))
-                   for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
-    return total_us / reps / 1e3
+from .measure import built_with, device_ms_by_kernel, smi
 
 
 def phase_clocks(cases: dict) -> None:
@@ -58,10 +37,7 @@ def phase_clocks(cases: dict) -> None:
 
     from ..utils import build
 
-    flags = build.NVCC_FLAGS
-    build.NVCC_FLAGS = (*flags, "-DDFT_PHASE_CLOCKS")  # another hash: another library
-    build._loaded.clear()
-    try:
+    with built_with("-DDFT_PHASE_CLOCKS"):
         for name, lib in (("log_mel_wave_128x16000", "log_mel_wave"),
                           ("fbank_frames_12544x400", "fbank_frames")):
             for _ in range(3):
@@ -75,9 +51,6 @@ def phase_clocks(cases: dict) -> None:
             print(json.dumps({"phase_clocks": name, "frames": t[1] - t[0],
                               "first_chunk_and_a": t[2] - t[1], "chunks": t[3] - t[2],
                               "log_and_store": t[4] - t[3], "total": t[4] - t[0]}), flush=True)
-    finally:
-        build.NVCC_FLAGS = flags
-        build._loaded.clear()
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -116,7 +89,8 @@ def main(argv: list[str] | None = None) -> int:
                     fn()
                 torch.cuda.synchronize()
         print(json.dumps({"card": state, "clocks_sm_mem": smi("clocks.sm,clocks.mem"),
-                          **{name: device_ms(fn) for name, fn in cases.items()}}), flush=True)
+                          **{name: sum(device_ms_by_kernel(fn).values())
+                             for name, fn in cases.items()}}), flush=True)
     if args.phases:
         phase_clocks(cases)
     return 0

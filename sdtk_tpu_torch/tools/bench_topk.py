@@ -5,15 +5,17 @@ the library call for the same function.
 
 At the identify shape (32 windows x 8 192 profiles x 192, k 192) and at
 catalog scale (64 x 100 000 x 192, k 64, f32 and bf16 profiles; and
-x 512 columns, f32) it prints, from ``torch.profiler`` (mean of 20
-calls): the device time of the queries' split (``identify_topk_split``),
+x 512 columns, f32), and with 512 windows (a 10-minute query, bucketed)
+against 8 192 and 100 000 profiles, it prints, from ``torch.profiler``
+(mean of 20 calls): the device time of the queries' split (``identify_topk_split``),
 of pass A (``identify_topk_max``), of pass B (``identify_topk_select``)
 and of the merge (every other kernel of the wrapper call: the sort of the
 survivors and the gathers); the device time
 of the library product ``F.normalize(q) @ F.normalize(p).T`` alone and of
-the whole library call ``torch.topk(... .amax(0), k)``; and the CUDA-event
+the whole library call ``torch.topk(... .amax(0), k)``; the CUDA-event
 times of the wrapper and of the library call (median of 30, after 5
-warm-up calls).
+warm-up calls); and the host time of each call, from its start to its
+return with the card idle (median of 50).
 
 ``--trees`` runs this tool once per directory, each a checkout of the
 repository, in a fresh process with that directory as its working
@@ -33,54 +35,20 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
+
+from .measure import built_with, device_ms_by_kernel, event_ms, host_ms, smi
 
 SHAPES = [  # (name, W, N, D, k, profile dtype)
     ("identify", 32, 8192, 192, 192, "float32"),
     ("catalog", 64, 100_000, 192, 64, "float32"),
     ("catalog-bf16", 64, 100_000, 192, 64, "bfloat16"),
     ("catalog-d512", 64, 100_000, 512, 64, "float32"),
+    ("identify-w512", 512, 8192, 192, 192, "float32"),  # a 10-minute query, bucketed
+    ("catalog-w512", 512, 100_000, 192, 64, "float32"),
 ]
 PHASES = ("query_staging", "wait_for_chunk", "land_chunk", "product", "window_max", "tail")
-
-
-def smi(query: str) -> str:
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
-def device_ms_by_kernel(fn, reps: int = 20) -> dict[str, float]:
-    """Mean device ms per call of ``fn``, by CUDA kernel name."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: float(getattr(e, "self_device_time_total", 0.0)
-                         or getattr(e, "self_cuda_time_total", 0.0)) / reps / 1e3
-            for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
-
-
-def event_ms(fn, reps: int = 30, warmup: int = 5) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(reps)]
-    for a, b in events:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
 def inputs(w: int, n: int, d: int, dtype: str, seed: int = 0):
@@ -120,7 +88,8 @@ def bench(card: str) -> None:
             "kernel_device_ms": sum(by_kernel.values()),
             "library_product_device_ms": sum(device_ms_by_kernel(lambda: qn @ pn.T).values()),
             "library_device_ms": sum(device_ms_by_kernel(library).values()),
-            "kernel_event_ms": event_ms(kernel), "library_event_ms": event_ms(library)}),
+            "kernel_event_ms": event_ms(kernel), "library_event_ms": event_ms(library),
+            "kernel_host_ms": host_ms(kernel), "library_host_ms": host_ms(library)}),
             flush=True)
 
 
@@ -132,10 +101,7 @@ def phase_clocks(card: str) -> None:
     from ..ops import topk_fused
     from ..utils import build
 
-    flags = build.NVCC_FLAGS
-    build.NVCC_FLAGS = (*flags, "-DTOPK_PHASE_CLOCKS")  # another hash: another library
-    build._loaded.clear()
-    try:
+    with built_with("-DTOPK_PHASE_CLOCKS"):
         _, w, n, d, k, dtype = SHAPES[1]
         q, p = inputs(w, n, d, dtype)
         for _ in range(3):
@@ -148,9 +114,6 @@ def phase_clocks(card: str) -> None:
         print(json.dumps({"nvidia_smi": card, "phase_clocks": "catalog",
                           **dict(zip(PHASES, list(clocks))), "total": sum(list(clocks)[:6])}),
               flush=True)
-    finally:
-        build.NVCC_FLAGS = flags
-        build._loaded.clear()
 
 
 def main(argv: list[str] | None = None) -> int:
