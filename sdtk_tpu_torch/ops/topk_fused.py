@@ -107,6 +107,7 @@ def identify_topk_cuda(queries: torch.Tensor, profiles: torch.Tensor, k: int = 6
     s, pos = select_topk(cand_s, min(k, n))
     return s, cand_i[pos]
 
+
 def identify_topk_fused(queries: torch.Tensor, profiles: torch.Tensor, k: int = 64
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """(W, D) queries vs (N, D) profiles → top-k (scores, rows) by
