@@ -43,7 +43,8 @@ CUDA-core predecessors took 0.4121 ms at (128, 16000) and 0.3361 ms at
 700 W; PERF.md).  The identify top-k runs its products on the tensor
 cores in 3xTF32 (f32-accurate); its single-kernel CUDA-core predecessor
 took 0.3470 ms on the device at (64, 100 000, 192) f32 (same card;
-PERF.md).  Then
+PERF.md).  The cosine kernel does too; its CUDA-core predecessor took
+0.0234 ms on the device at (29, 8 192, 192) (same card; PERF.md).  Then
 the ``kernels`` line, the card's name and power limit as ``nvidia-smi``
 prints them, and ``{"ok": true, "device": {...}}`` last.
 """
@@ -78,8 +79,9 @@ PEAK_BYTES = 3.35e12
 # a narrow low mel band (1-2 bins) moves by up to ~4e-3 in ln.  The bars
 # leave 10x room; dB is 10/ln(10) times the ln scale.
 TOL = {"bf16-ln": 0.05, "bf16-db-fmin0": 0.25, "f32-ln": 2e-3}
-# Cosine and identify top-k: f32 FMAs on both sides, summed in another
-# order, a few f32 ulps of a cosine.
+# Cosine and identify top-k: f32-accurate products on both sides (3xTF32 in
+# the kernels, f32 in the plain versions), summed in another order, a few
+# f32 ulps of a cosine.
 SCORE_TOL = 1e-5
 D = 192  # ECAPA embedding width
 IDENTIFY_N = 8192  # profile rows of the identify phase: the fused route's threshold
@@ -137,12 +139,12 @@ def with_device_time(row: dict, fn, kernel: str) -> dict:
 
 
 def mma_counts() -> dict:
-    """Tensor-core instructions in the SASS of the two log-mel libraries
-    and of the identify top-k library (``cuobjdump``): HMMA is
-    ``mma.sync``, HGMMA is ``wgmma``."""
+    """Tensor-core instructions in the SASS of the two log-mel libraries,
+    the identify top-k library and the cosine library (``cuobjdump``): HMMA
+    is ``mma.sync``, HGMMA is ``wgmma``."""
     from sdtk_tpu_torch.utils import build
 
-    names = ("log_mel_wave", "fbank_frames", "identify_topk")
+    names = ("log_mel_wave", "fbank_frames", "identify_topk", "cosine")
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return {name: "not checked" for name in names}
@@ -169,9 +171,10 @@ def summary(name: str, source: str, replaces: str, row: dict, path: str | None) 
     """One entry of the ``kernels`` line from a kernel-phase row."""
     keys = ("max_abs_err", "ms", "device_ms", "bound_share_of_device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    extra = ("library_device_ms", "host_ms", "library_host_ms")  # where the phase took them
     return {"name": name, "route": "cuda", "source": f"sdtk_tpu_torch/csrc/{source}",
             "replaces": replaces, "path": path, "shape": row["shape"],
-            **{k: row[k] for k in keys}}
+            **{k: row[k] for k in keys}, **{k: row[k] for k in extra if k in row}}
 
 
 def speechlike_batch(b: int, n: int, seed: int):
@@ -266,33 +269,47 @@ def _gauss(shape, seed: int, device, dtype=None):
 
 def phase_kernel_cosine(device) -> dict:
     """K3: (Q, D) x (N, D) cosine, at the dense identify route's shape of
-    the identify phase (29 windows x 8 192 profiles) and at (32, 4096) and
-    a ragged (29, 4093)."""
+    the identify phase (29 windows x 8 192 profiles), at (32, 4096) and a
+    ragged (29, 4093), for a 5-minute query (199 windows) and at the
+    x-vector width (D = 512).  The bound counts f32-accurate products at the
+    card's fastest route for them, 3xTF32; beside the kernel's times, the
+    library call's device time (all its kernels) and the host time of both
+    calls."""
     import torch
     import torch.nn.functional as F
 
     from sdtk_tpu_torch.ops import cosine
+    from sdtk_tpu_torch.tools.measure import device_ms_by_kernel, host_ms
 
     rows = {}
-    for q_n, p_n in ((29, IDENTIFY_N), (32, 4096), (29, 4093)):
-        q, p = _gauss((q_n, D), q_n, device), _gauss((p_n, D), p_n, device)
+    for q_n, p_n, d in ((29, IDENTIFY_N, D), (32, 4096, D), (29, 4093, D), (199, IDENTIFY_N, D),
+                        (29, IDENTIFY_N, 512)):
+        q, p = _gauss((q_n, d), q_n, device), _gauss((p_n, d), p_n + d, device)
         got = cosine.cosine_cuda(q, p)
         want = cosine.cosine_plain(q, p)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not bool(torch.isfinite(got).all()) or err > SCORE_TOL:
-            raise AssertionError(f"cosine ({q_n}, {p_n}, {D}): kernel vs plain max|d| {err}")
-        row = {"shape": [q_n, p_n, D], "max_abs_err": err, "tol": SCORE_TOL,
-               "ms": cuda_ms(lambda: cosine.cosine_cuda(q, p)),
-               "plain_ms": cuda_ms(lambda: cosine.cosine_plain(q, p)),
-               "library_ms": cuda_ms(lambda: F.normalize(q, dim=1) @ F.normalize(p, dim=1).T),
-               **bound(4 * (q_n * D + p_n * D + q_n * p_n), 2 * q_n * p_n * D)}
-        row = with_device_time(row, lambda: cosine.cosine_cuda(q, p), "cosine_kernel")
+            raise AssertionError(f"cosine ({q_n}, {p_n}, {d}): kernel vs plain max|d| {err}")
+
+        def kernel(q=q, p=p):
+            return cosine.cosine_cuda(q, p)
+
+        def library(q=q, p=p):
+            return F.normalize(q, dim=1) @ F.normalize(p, dim=1).T
+
+        row = {"shape": [q_n, p_n, d], "max_abs_err": err, "tol": SCORE_TOL,
+               "ms": cuda_ms(kernel), "plain_ms": cuda_ms(lambda: cosine.cosine_plain(q, p)),
+               "library_ms": cuda_ms(library),
+               "library_device_ms": sum(device_ms_by_kernel(library).values()),
+               "host_ms": host_ms(kernel), "library_host_ms": host_ms(library),
+               **bound(4 * (q_n * d + p_n * d + q_n * p_n), 2 * q_n * p_n * d, "tf32x3")}
+        row = with_device_time(row, kernel, "cosine_kernel")
         emit({"phase": "kernel", "name": "cosine",
               "library": "F.normalize(q) @ F.normalize(p).T", **row})
-        rows[(q_n, p_n)] = row
-    return summary("cosine", "cosine.cu", "sdtk_tpu/ops/cosine.py:94", rows[(29, IDENTIFY_N)],
-                   "identify")
+        rows[(q_n, p_n, d)] = row
+    return summary("cosine", "cosine.cu", "sdtk_tpu/ops/cosine.py:94",
+                   rows[(29, IDENTIFY_N, D)], "identify")
 
 
 def phase_kernel_topk(device) -> dict:

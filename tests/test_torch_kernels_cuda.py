@@ -65,16 +65,43 @@ def _rows(n, d, seed, dtype=torch.float32):
     return torch.from_numpy(x).to(dtype)
 
 
-# f32 FMAs on both sides, summed in another order: a few ulps of a cosine.
-@pytest.mark.parametrize("q,n,d", [(32, 4096, 192), (29, 4093, 192), (1, 1, 7), (130, 70, 33)])
+# 3xTF32 products (f32-accurate) with the norms applied after them, against
+# f32 products of the normalized rows: a few ulps of a cosine.
+# (29, 8192, 192) is the dense identify shape, (199, 8192, 192) a 5-minute
+# query (7 query chunks), D = 512 the x-vector width (128-column slabs, one
+# and three chunks), D = 225 the first width past a resident tile, D = 7 and
+# 33 unaligned rows (4-byte copies), N = 4093 and 513 ragged tiles.
+@pytest.mark.parametrize("q,n,d", [
+    (32, 4096, 192), (29, 4093, 192), (1, 1, 7), (130, 70, 33), (29, 8192, 192),
+    (199, 8192, 192), (29, 8192, 512), (65, 513, 192), (29, 300, 7), (33, 301, 33),
+    (65, 1000, 512), (40, 100, 225),
+])
 def test_cosine_kernel_matches_plain(cuda, q, n, d):
     qs, ps = _rows(q, d, 1).to(cuda), _rows(n, d, 2).to(cuda)
     qs[0] = 0.0  # a zero row scores 0 against everything
+    ps[n // 2] = 0.0
     before = cosine.cosine.launches
     got = cosine.cosine(qs, ps)
     torch.cuda.synchronize()
     assert cosine.cosine.launches == before + 1
     assert got.shape == (q, n) and float(got[0].abs().max()) == 0.0
+    assert float(got[:, n // 2].abs().max()) == 0.0
+    assert float((got - cosine.cosine_plain(qs, ps)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("d", [192, 8])
+def test_cosine_kernel_reads_storage_off_16_bytes(cuda, d):
+    """Profiles whose storage starts one float past a 16-byte boundary take
+    the kernel's 4-byte copies; queries the same, at another offset."""
+    n, q = 777, 29
+    pbuf = _rows(n * d + 1, 1, 5).reshape(-1).to(cuda)
+    qbuf = _rows(q * d + 3, 1, 6).reshape(-1).to(cuda)
+    ps, qs = pbuf[1:].view(n, d), qbuf[3:].view(q, d)
+    assert ps.is_contiguous() and ps.data_ptr() % 16 == 4 and qs.data_ptr() % 16 == 12
+    before = cosine.cosine.launches
+    got = cosine.cosine(qs, ps)
+    torch.cuda.synchronize()
+    assert cosine.cosine.launches == before + 1
     assert float((got - cosine.cosine_plain(qs, ps)).abs().max()) <= 1e-5
 
 
