@@ -27,11 +27,14 @@
 //   steady state for a ring to reach: the whole tile (24 KB at D = 192) and
 //   the first query chunk are issued at once as 16-byte cp.async copies
 //   (4-byte copies when D % 4 != 0 or a pointer is not 16-byte aligned), and
-//   the kernel pays one memory round trip.  The queries are read from device
+//   the kernel pays one memory round trip.  Each of a warp's column groups
+//   is a commit group of its own, so its products start as soon as it has
+//   landed, under the copies of the next.  The queries are read from device
 //   memory (L2-resident, 22 KB at Q = 29) by every block and need no
 //   separate launch.  With D <= 224 the tile stays resident while the next
-//   query chunk lands in a second stage; wider rows go through two stages
-//   of 128-column slabs of tile and queries.  In shared memory a row's 16
+//   query chunk lands in a second stage (chunks looped in the block measured
+//   faster than chunks in the grid's y, which re-read the tile); wider rows
+//   go through two stages of 128-column slabs of tile and queries.  In shared memory a row's 16
 //   columns of a group lie 16 floats apart (= 16 mod 32), so the float4
 //   fragment reads below are free of bank conflicts without padding.
 //
@@ -256,12 +259,7 @@ cosine_kernel(const float* __restrict__ q, const float* __restrict__ p, float* _
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int groups = cdiv(d, GW), sg = slab_groups(d), nslab = cdiv(groups, sg);
   const bool resident = nslab == 1;
-#ifdef COSINE_CHUNKS_IN_GRID
-  const int c0 = blockIdx.y, items = nslab;  // one query chunk a block
-#else
-  const int c0 = 0, items = cdiv(nq, QC) * nslab;  // every query chunk
-#endif
-  const int row0 = blockIdx.x * BR;
+  const int items = cdiv(nq, QC) * nslab, row0 = blockIdx.x * BR;
   // resident: [tile][stage 0: queries][stage 1: queries]; else stages of
   // [queries][tile]; then the partial products
   const int stage = (resident ? 1 : 2) * sg * GROUP;
@@ -269,7 +267,7 @@ cosine_kernel(const float* __restrict__ q, const float* __restrict__ p, float* _
   float* const red = stages + 2 * stage;
   COSINE_CLOCK_START;
 
-  // Item k is query chunk c0 + k / nslab, slab k % nslab, in stage k % 2.
+  // Item k is query chunk k / nslab, slab k % nslab, in stage k % 2.
   // Each of the warp's groups is a commit group of its own, so that its
   // products start as soon as it has landed.  A warp copies and reads only
   // its own groups, so a warp barrier orders it.
@@ -278,7 +276,7 @@ cosine_kernel(const float* __restrict__ q, const float* __restrict__ p, float* _
     return ng > warp ? cdiv(ng - warp, WARPS) : 0;
   };
   auto issue = [&](int k) {
-    const int c = c0 + k / nslab, s = k % nslab;
+    const int c = k / nslab, s = k % nslab;
     float* st = stages + (k & 1) * stage;
     for (int i = 0, gl = warp; i < mine(k); ++i, gl += WARPS) {
       const int col0 = (s * sg + gl) * GW;
@@ -294,7 +292,7 @@ cosine_kernel(const float* __restrict__ q, const float* __restrict__ p, float* _
   float acc[2][4][4], sq[2][2], sp[4] = {0.f, 0.f, 0.f, 0.f}, ip[4];
   issue(0);
   for (int k = 0; k < items; ++k) {
-    const int c = c0 + k / nslab, s = k % nslab;
+    const int c = k / nslab, s = k % nslab;
     if (s == 0) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -375,7 +373,7 @@ cosine_kernel(const float* __restrict__ q, const float* __restrict__ p, float* _
           if (col + e < np) dst[e] = o[e];
       }
     }
-    __syncthreads();  // the partials are read before the next chunk writes them
+    if (k + 1 < items) __syncthreads();  // the partials read before the next chunk writes them
     COSINE_CLOCK(2);
   }
   COSINE_CLOCK_STORE;
@@ -399,12 +397,7 @@ cudaError_t launch(const float* q, const float* p, float* out, int nq, int np, i
     if (err != cudaSuccess) return err;
     raised = true;
   }
-#ifdef COSINE_CHUNKS_IN_GRID
-  const dim3 grid(cdiv(np, BR), cdiv(nq, QC));
-#else
-  const dim3 grid(cdiv(np, BR));
-#endif
-  cosine_kernel<VEC><<<grid, THREADS, smem_bytes(d), s>>>(q, p, out, nq, np, d, vec_out);
+  cosine_kernel<VEC><<<cdiv(np, BR), THREADS, smem_bytes(d), s>>>(q, p, out, nq, np, d, vec_out);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 """Device time of the cosine kernel (``csrc/cosine.cu``) beside the library
 call for the same function.
 
-    python -m sdtk_tpu_torch.tools.bench_cosine [--trees DIR ...] [--phases] [--define NAME]
+    python -m sdtk_tpu_torch.tools.bench_cosine [--trees DIR ...] [--phases]
 
 At the dense identify shape (29 windows x 8 192 profiles x 192), at
 (32, 4 096, 192) and a ragged (29, 4 093, 192), for a 5-minute query
@@ -19,9 +19,7 @@ directory, in the order given (for example parent, change, change,
 parent).  ``--phases`` builds the kernel a second time with
 ``-DCOSINE_PHASE_CLOCKS`` and prints, at each shape, the SM clocks that
 thread 0 of block 0 spends waiting for its copies, in products and in the
-epilogue.  ``--define NAME`` builds the kernel with ``-DNAME`` for every
-measurement (``COSINE_CHUNKS_IN_GRID``: one query chunk a block, the chunks
-in the grid's y, in place of a loop inside the block).
+epilogue.
 
 One JSON object per line, each with the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -31,7 +29,6 @@ them.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import subprocess
@@ -116,7 +113,6 @@ def main(argv: list[str] | None = None) -> int:
                     help="run once per checkout, each in a fresh process, in this order")
     ap.add_argument("--phases", action="store_true",
                     help="SM clocks by phase in block 0, at each shape")
-    ap.add_argument("--define", metavar="NAME", help="build the kernel with -DNAME")
     args = ap.parse_args(argv)
     if args.trees:
         rc, card = 0, smi("name,power.limit")
@@ -133,12 +129,9 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     card = smi("name,power.limit")
-    with built_with(f"-D{args.define}") if args.define else contextlib.nullcontext():
-        if args.define:
-            print(json.dumps({"nvidia_smi": card, "define": args.define}), flush=True)
-        bench(card)
-        if args.phases:
-            phase_clocks(card)
+    bench(card)
+    if args.phases:
+        phase_clocks(card)
     return 0
 
 
