@@ -34,11 +34,8 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
-import sys
 
-from .measure import built_with, device_ms_by_kernel, event_ms, host_ms, smi
+from .measure import built_with, device_ms_by_kernel, event_ms, host_ms, run_per_tree, smi
 
 SHAPES = [  # (name, W, N, D, k, profile dtype)
     ("identify", 32, 8192, 192, 192, "float32"),
@@ -124,14 +121,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="SM clocks by phase in pass A's first block (catalog scale, f32)")
     args = ap.parse_args(argv)
     if args.trees:
-        rc, card = 0, smi("name,power.limit")
-        for tree in args.trees:
-            print(json.dumps({"nvidia_smi": card, "tree": tree}), flush=True)
-            cmd = [sys.executable, "-m", "sdtk_tpu_torch.tools.bench_topk"]
-            env = {**os.environ, "PYTHONPATH": os.path.abspath(tree)}
-            rc |= subprocess.run(cmd + (["--phases"] if args.phases else []), cwd=tree,
-                                 env=env).returncode
-        return rc
+        return run_per_tree("sdtk_tpu_torch.tools.bench_topk", args.trees, ["--phases"] if args.phases else [])
 
     import torch
 

@@ -1,13 +1,16 @@
 """Timing helpers shared by the bench tools: the card's name from
 ``nvidia-smi``, device time by kernel (``torch.profiler``), CUDA-event time,
-the host time of a call, and a kernel library built with an extra ``-D``
-flag."""
+the host time of a call, a kernel library built with an extra ``-D`` flag,
+and a tool run once per checkout in fresh processes."""
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import statistics
 import subprocess
+import sys
 import time
 
 
@@ -82,3 +85,17 @@ def built_with(flag: str):
     finally:
         build.NVCC_FLAGS = flags
         build._loaded.clear()
+
+
+def run_per_tree(module: str, trees: list[str], args: list[str]) -> int:
+    """``python -m module *args`` once per checkout in ``trees``, in the
+    order given, each in a fresh process with the checkout as its working
+    directory and import path (device times read in a process that has
+    loaded several builds of one kernel drift).  Returns the OR of the
+    exit codes."""
+    rc, card = 0, smi("name,power.limit")
+    for tree in trees:
+        print(json.dumps({"nvidia_smi": card, "tree": tree}), flush=True)
+        env = {**os.environ, "PYTHONPATH": os.path.abspath(tree)}
+        rc |= subprocess.run([sys.executable, "-m", module, *args], cwd=tree, env=env).returncode
+    return rc
