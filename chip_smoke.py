@@ -33,6 +33,23 @@ any failure raises and exits non-zero:
              where an identify call spends them;
 10. cli-detection — ``cli.detection`` add / enroll / identify / verify on
              a small store;
+11. streaming — ``OnlineDiarizer`` (default ECAPA tower) fed the meeting
+             in 0.5 s chunks: chunk latency p50 / p95 / max, real-time
+             factor, speaker count, live and ``finalize()`` DER at collar
+             0.75 (fails above the main phase's bar or at a count other
+             than 3), launch counts;
+12. tower-xvector — the bundled x-vector (``SDTK_BACKEND_TOWER=xvector``)
+             on the card (bf16) against its f32 run on the CPU, 8 windows
+             of 3 s, by cosine;
+13. identify-xvector — phase 9 with the x-vector: 512-d profiles,
+             N = 2 048 rows (a short store load; the width is full), both
+             routes forced by ``SDTK_IDENTIFY_TOPK_N``, so the identify
+             top-k and the cosine kernel run at D = 512;
+14. embed-cluster — what ``bench.py`` times: log-mel kernel -> ECAPA
+             c512 (bundled, bf16) -> L2 -> ``cluster_stage(max_speakers=8,
+             use_subspace=True)`` on a (1024, 48 000) batch, 20 steps each
+             chained on the one before, by CUDA events; embed-only and
+             embed + cluster audio-s per s and the cluster's share;
 
 The kernel phase holds all four kernels (log-mel from the waveform, the
 cosine scores, the fused identify top-k, log-mel from frames) at the
@@ -45,8 +62,9 @@ cores in 3xTF32 (f32-accurate); its single-kernel CUDA-core predecessor
 took 0.3470 ms on the device at (64, 100 000, 192) f32 (same card;
 PERF.md).  The cosine kernel does too; its CUDA-core predecessor took
 0.0234 ms on the device at (29, 8 192, 192) (same card; PERF.md).  Then
-the ``kernels`` line, the card's name and power limit as ``nvidia-smi``
-prints them, and ``{"ok": true, "device": {...}}`` last.
+the ``kernels`` line (each kernel's launches on its main path, and on
+every path driven, ``launches_by_path``), the card's name and power limit
+as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -85,6 +103,7 @@ TOL = {"bf16-ln": 0.05, "bf16-db-fmin0": 0.25, "f32-ln": 2e-3}
 SCORE_TOL = 1e-5
 D = 192  # ECAPA embedding width
 IDENTIFY_N = 8192  # profile rows of the identify phase: the fused route's threshold
+XVECTOR_IDENTIFY_N = 2048  # the x-vector identify phase's rows (full width, 512)
 DER_BAR = 0.05
 TOWER_COS_BAR = 0.995  # bf16 on the card vs f32 on the CPU, per window
 
@@ -112,22 +131,26 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 5) -> float:
 def device_ms(fn, kernel: str, reps: int = 20):
     """Mean device time of the CUDA kernel whose name contains ``kernel``
     over ``reps`` calls of ``fn`` (``torch.profiler``): the kernel alone,
-    without the wrapper's host work.  "not measured" where the profiler
-    shows no device time."""
+    without the wrapper's host work.  A trace that shows no device time
+    is taken once more; "not measured" where the second shows none
+    either."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(float(getattr(e, "self_device_time_total", 0.0)
-                         or getattr(e, "self_cuda_time_total", 0.0))
-                   for e in prof.key_averages()
-                   if kernel in e.key and str(e.device_type).endswith("CUDA"))
-    return total_us / reps / 1e3 if total_us > 0 else "not measured"
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(float(getattr(e, "self_device_time_total", 0.0)
+                             or getattr(e, "self_cuda_time_total", 0.0))
+                       for e in prof.key_averages()
+                       if kernel in e.key and str(e.device_type).endswith("CUDA"))
+        if total_us > 0:
+            return total_us / reps / 1e3
+    return "not measured"
 
 
 def with_device_time(row: dict, fn, kernel: str) -> dict:
@@ -179,13 +202,17 @@ def summary(name: str, source: str, replaces: str, row: dict, path: str | None) 
 
 def speechlike_batch(b: int, n: int, seed: int):
     """(b, n) synthetic voices with ragged lengths (tails zeroed, as the
-    diarizer pads), plus the lengths."""
+    diarizer pads), plus the lengths.  Above 128 rows, 32 utterances are
+    repeated at random gains (one utterance takes ~60 ms to synthesize)."""
     import numpy as np
 
     from sdtk_tpu_torch.data.synth import synth_utterance
 
     rng = np.random.default_rng(seed)
-    x = np.stack([synth_utterance(i % 16, 100 + i, n / 16000) for i in range(b)])
+    n_utt = b if b <= 128 else 32
+    x = np.stack([synth_utterance(i % 16, 100 + i, n / 16000) for i in range(n_utt)])
+    if n_utt < b:
+        x = x[np.arange(b) % n_utt] * rng.uniform(0.5, 1.5, size=(b, 1))
     lengths = np.where(rng.uniform(size=b) < 0.25, rng.integers(400, n, size=b), n)
     x[np.arange(n)[None, :] >= lengths[:, None]] = 0.0
     return x.astype(np.float32), lengths.astype(np.int64)
@@ -194,8 +221,10 @@ def speechlike_batch(b: int, n: int, seed: int):
 def phase_kernel(device) -> dict:
     """K1: (B, N) waveform -> (B, T, 80) log-mel at the diarizer's chunk
     (128 one-second windows), bf16 in both log scales and f32; in bf16 also
-    at the identify path's chunk (32 three-second windows) and at a small
-    ragged shape (3 x 4000: 23 frames a row, less than one tile)."""
+    at the identify path's chunk (32 three-second windows), at a small
+    ragged shape (3 x 4000: 23 frames a row, less than one tile), at the
+    streaming path's chunk (16 windows of 1.5 s) and at the embed + cluster
+    batch (1024 three-second windows, 196 MB of f32 input)."""
     import torch
 
     from sdtk_tpu_torch.ops import fbank, fbank_wave
@@ -207,7 +236,8 @@ def phase_kernel(device) -> dict:
         "f32-ln": FrontendConfig(compute_dtype="float32"),
     }
     cases = [(name, (128, 16000)) for name in configs]
-    cases += [("bf16-ln", (32, 48000)), ("bf16-db-fmin0", (32, 48000)), ("bf16-ln", (3, 4000))]
+    cases += [("bf16-ln", (32, 48000)), ("bf16-db-fmin0", (32, 48000)), ("bf16-ln", (3, 4000)),
+              ("bf16-ln", (16, 24000)), ("bf16-ln", (1024, 48000))]
     f32 = configs["f32-ln"]
     win = torch.from_numpy(fbank.melbank.window(f32.win_length, f32.window)).to(device)
     mel = torch.from_numpy(fbank.melbank.mel_filterbank(
@@ -439,10 +469,14 @@ def read_launches(wrappers: dict) -> dict:
     return {name: fn.launches for name, fn in wrappers.items()}
 
 
-def phase_identify(work: Path, device: str) -> dict:
+def phase_identify(work: Path, device: str, phase: str = "identify",
+                   n_rows: int = IDENTIFY_N) -> dict:
     """The profile side on the card, through the entry points a user calls
-    (``pipeline.identify``), with the bundled c512 checkpoint and its
-    calibration.  Returns the launch counts of the path."""
+    (``pipeline.identify``), with the bundled c512 checkpoint of the tower
+    in use and its calibration, at ``n_rows`` profile rows of the tower's
+    width.  Each query runs on the fused route (``SDTK_IDENTIFY_TOPK_N`` at
+    ``n_rows``) and on the dense route (above it).  Returns the launch
+    counts of the path."""
     import numpy as np
     import torch
 
@@ -454,7 +488,7 @@ def phase_identify(work: Path, device: str) -> dict:
     from sdtk_tpu_torch.store import profiles as P
     from sdtk_tpu_torch.utils.audio import save_wav
 
-    os.environ["SPEAKERS_EMBEDDINGS_DIR"] = str(work / "store")
+    os.environ["SPEAKERS_EMBEDDINGS_DIR"] = str(work / f"{phase}-store")
     voices = {f"voice-{v}": v for v in (3, 8, 13)}
     wavs = {}
     for sid, v in voices.items():
@@ -462,14 +496,15 @@ def phase_identify(work: Path, device: str) -> dict:
         save_wav(work / f"{sid}-query.wav", synth_utterance(v, 99, 45.0))  # held out
         wavs[sid] = (work / f"{sid}-enroll.wav", work / f"{sid}-query.wav")
     backend = get_backend("gpu", device=device)
+    dim = backend.embedding_dim
 
     # voice-3 gets two more embeddings (halves of its enrollment WAV): E = 3
     # embeddings of one speaker, so the fused route keeps k = 64 * 3 rows
     extra = {"voice-3": [[(0.0, 6.0)], [(6.0, 12.0)]]}
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
-    n_distract = IDENTIFY_N - len(voices) - sum(map(len, extra.values()))
-    distractors = rng.standard_normal((n_distract, D)).astype(np.float32)
+    n_distract = n_rows - len(voices) - sum(map(len, extra.values()))
+    distractors = rng.standard_normal((n_distract, dim)).astype(np.float32)
     distractors /= np.linalg.norm(distractors, axis=1, keepdims=True)
     for j, vec in enumerate(distractors):
         profile = P.create_speaker_profile(f"distractor-{j:05d}", f"Distractor {j}")
@@ -488,11 +523,8 @@ def phase_identify(work: Path, device: str) -> dict:
         for segs in extra.get(sid, []):
             ident.enroll(sid, enroll_wav, segments=segs, device=device)
     routes, identify_s, by_route = {}, {}, {}
-    for route, fused_n in (("fused", None), ("dense", str(10 * IDENTIFY_N))):
-        if fused_n is None:
-            os.environ.pop("SDTK_IDENTIFY_TOPK_N", None)
-        else:
-            os.environ["SDTK_IDENTIFY_TOPK_N"] = fused_n
+    for route, fused_n in (("fused", n_rows), ("dense", 10 * n_rows)):
+        os.environ["SDTK_IDENTIFY_TOPK_N"] = str(fused_n)
         before = read_launches(wrappers)
         routes[route], identify_s[route] = {}, {}
         for sid, (_, query) in wavs.items():
@@ -500,7 +532,7 @@ def phase_identify(work: Path, device: str) -> dict:
             routes[route][sid] = ident.identify(query, device=device)
             identify_s[route][sid] = time.perf_counter() - t0
         by_route[route] = {k: v - before[k] for k, v in read_launches(wrappers).items()}
-    os.environ.pop("SDTK_IDENTIFY_TOPK_N", None)
+    os.environ.pop("SDTK_IDENTIFY_TOPK_N", None)  # verify takes the route N gives it
     verify = {sid: ident.verify(sid, query, device=device) for sid, (_, query) in wavs.items()}
     torch.cuda.synchronize()
     launches = read_launches(wrappers)
@@ -524,7 +556,8 @@ def phase_identify(work: Path, device: str) -> dict:
 
     top = {r: {s: [(row["speaker_id"], row["score"]) for row in res[:3]]
                for s, res in rr.items()} for r, rr in routes.items()}
-    emit({"phase": "identify", "profiles": len(pm), "query_windows": int(q.shape[0]), "k": k,
+    emit({"phase": phase, "tower": backend.model_version, "profiles": len(pm), "dim": dim,
+          "query_windows": int(q.shape[0]), "k": k,
           "store_write_seconds": store_s, "enroll_seconds": enroll_s,
           "identify_seconds": identify_s, "breakdown_seconds": breakdown,
           "top3": top, "raw_fused_vs_dense_max_abs_err": raw_err, "verify": verify,
@@ -541,7 +574,7 @@ def phase_identify(work: Path, device: str) -> dict:
     if raw_err > SCORE_TOL:
         raise AssertionError(f"raw survivor scores: fused vs dense max|d| {raw_err}")
     per_spk = max(sum(r["speaker_id"] == sid for r in pm.rows) for sid in wavs)
-    if len(pm) != IDENTIFY_N or q.shape[0] < 29 or 64 * per_spk != k:
+    if len(pm) != n_rows or q.shape[0] < 29 or 64 * per_spk != k or q.shape[1] != dim:
         raise AssertionError(f"identify ran at N={len(pm)}, W={q.shape[0]}, "
                              f"{per_spk} embeddings of one speaker")
     if (by_route["fused"]["identify_topk"] <= 0 or by_route["dense"]["cosine"] <= 0
@@ -580,21 +613,23 @@ def phase_cli_detection(work: Path, device: str) -> None:
         raise AssertionError(f"detection CLI: rcs {rcs}, first {first}")
 
 
-def phase_tower(engine, wav) -> None:
+def phase_tower(engine, wav, phase: str = "tower", win: int = 16000) -> None:
+    """The engine's tower on the card in its serving dtype against the same
+    weights in f32 on the CPU (plain log-mel), 8 windows of ``win``
+    samples, one of them ragged: per-window cosine."""
     from dataclasses import replace
 
     import numpy as np
     import torch
 
-    from sdtk_tpu_torch.models.ecapa import EcapaTdnn, l2_normalize
+    from sdtk_tpu_torch.models.ecapa import l2_normalize
     from sdtk_tpu_torch.ops import fbank
 
-    win = 16000
     windows = np.stack([wav[i * 6000 : i * 6000 + win] for i in range(8)]).astype(np.float32)
     lengths = np.full(8, win, np.int64)
     lengths[-1] = 5000  # one ragged row
     gpu = engine.embed(windows, lengths).float().cpu().numpy()
-    cpu_model = EcapaTdnn(replace(engine.model.cfg, dtype="float32"))
+    cpu_model = type(engine.model)(replace(engine.model.cfg, dtype="float32"))
     cpu_model.load_state_dict({k: v.cpu() for k, v in engine.model.state_dict().items()})
     with torch.inference_mode():
         feats, mask = fbank.log_mel(torch.from_numpy(windows),
@@ -602,10 +637,12 @@ def phase_tower(engine, wav) -> None:
                                     lengths=torch.from_numpy(lengths))
         cpu = l2_normalize(cpu_model.eval()(feats, mask)).numpy()
     cos = (gpu * cpu).sum(axis=1)
-    emit({"phase": "tower", "windows": 8, "min_cosine": float(cos.min()),
-          "bar": TOWER_COS_BAR, "finite": bool(np.isfinite(gpu).all())})
+    emit({"phase": phase, "tower": type(engine.model).__name__, "dtype": engine.model.cfg.dtype,
+          "params": engine.params_source, "windows": 8, "window_samples": win,
+          "dim": int(gpu.shape[1]), "min_cosine": float(cos.min()), "bar": TOWER_COS_BAR,
+          "finite": bool(np.isfinite(gpu).all())})
     if not np.isfinite(gpu).all() or cos.min() < TOWER_COS_BAR:
-        raise AssertionError(f"tower on the card disagrees with the CPU: cos {cos.min()}")
+        raise AssertionError(f"{phase}: tower on the card disagrees with the CPU: cos {cos.min()}")
 
 
 def phase_spectral() -> None:
@@ -635,6 +672,144 @@ def phase_spectral() -> None:
               "k_host": k_host, "labels_agree": agree, "seconds": seconds})
         if not agree:
             raise AssertionError("spectral device path disagrees with the host path")
+
+
+@contextlib.contextmanager
+def tower(name: str):
+    """Run the block with ``$SDTK_BACKEND_TOWER`` set to ``name``; the
+    registry's cached ``gpu`` backend is dropped on the way in and out, so
+    the backend is built anew with that tower."""
+    from sdtk_tpu_torch.backends.base import register_backend
+
+    target = "sdtk_tpu_torch.backends.gpu:GpuBackend"
+    os.environ["SDTK_BACKEND_TOWER"] = name
+    register_backend("gpu", target)
+    try:
+        yield
+    finally:
+        os.environ.pop("SDTK_BACKEND_TOWER", None)
+        register_backend("gpu", target)
+
+
+def phase_streaming(wav, ref, device: str) -> dict:
+    """``OnlineDiarizer`` on the card with the default tower: the meeting
+    fed in 0.5 s chunks as it would arrive, each chunk's latency on the
+    host clock (a feed ends on the device-to-host copy of its embeddings),
+    the real-time factor, live and ``finalize()`` DER at collar 0.75.
+    Returns the launch counts of the path."""
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch.cluster.der import diarization_error_rate
+    from sdtk_tpu_torch.pipeline.streaming import OnlineDiarizer, StreamingConfig
+    from sdtk_tpu_torch.tools.measure import device_ms_by_kernel, host_ms
+
+    chunk = 8000
+    wrappers = reset_launches()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    d = OnlineDiarizer(cfg=StreamingConfig(), device=device)
+    latency_ms, events = [], 0
+    for i in range(0, len(wav), chunk):
+        t0 = time.perf_counter()
+        events += len(d.feed(wav[i : i + chunk]))
+        latency_ms.append((time.perf_counter() - t0) * 1e3)
+    live = d.segments()
+    t0 = time.perf_counter()
+    fin = d.finalize()
+    finalize_s = time.perf_counter() - t0
+    total_s = time.perf_counter() - t_start
+    launches = read_launches(wrappers)
+    audio_s = len(wav) / 16000
+    der_live = diarization_error_rate(ref, live, collar=0.75)["der"]
+    der_fin = diarization_error_rate(ref, fin["segments"], collar=0.75)["der"]
+    one_row = [wav[:24000]]  # what a feed that completes one window embeds
+    embed_host = host_ms(lambda: d.backend.embed_batch(one_row), reps=20)
+    embed_dev = device_ms_by_kernel(lambda: d.backend.embed_batch(one_row), reps=5)
+    emit({"phase": "streaming", "tower": d.backend.model_version, "audio_seconds": audio_s,
+          "chunk_seconds": chunk / 16000, "chunks": len(latency_ms), "windows": events,
+          "chunk_latency_ms": {"p50": float(np.percentile(latency_ms, 50)),
+                               "p95": float(np.percentile(latency_ms, 95)),
+                               "max": max(latency_ms)},
+          "finalize_seconds": finalize_s, "rtf": total_s / audio_s,
+          "embed_one_window": {"host_ms": embed_host, "device_ms": sum(embed_dev.values()),
+                               "kernels": len(embed_dev)},
+          "new_speaker_threshold": d.new_speaker_threshold, "n_speakers": fin["n_speakers"],
+          "der_live_c075": der_live, "der_final_c075": der_fin, "der_bar": DER_BAR,
+          "launches": launches})
+    if launches["log_mel_wave"] <= 0:
+        raise AssertionError("kernel log_mel_wave was not launched on the streaming path")
+    if fin["n_speakers"] != 3 or not der_fin <= DER_BAR:
+        raise AssertionError(f"streaming: {fin['n_speakers']} speakers, final DER {der_fin}")
+    return launches
+
+
+def phase_embed_cluster(engine) -> dict:
+    """What ``bench.py`` times, on the card: K1 -> the ECAPA tower (bundled
+    weights, bf16) -> L2 -> ``cluster_stage(max_speakers=8,
+    use_subspace=True)`` on a (1024, 48 000) batch of 3 s windows, 20 steps
+    each chained on the one before (the next input depends on the
+    last output, so no step can be skipped or reordered), by CUDA events;
+    embed alone the same way.  Returns the launch counts of the path."""
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch.cluster.spectral import bench_cluster_fn
+    from sdtk_tpu_torch.tools.measure import device_ms_by_kernel
+
+    b, n, steps = 1024, 48000, 20
+    x0 = torch.from_numpy(speechlike_batch(b, n, seed=7)[0]).to(engine.device)
+    lengths = torch.full((b,), n, device=engine.device)
+    cluster = bench_cluster_fn(max_speakers=8, use_subspace=True)
+
+    def embed(x):
+        return engine.embed(x, lengths)
+
+    def embed_cluster(x):
+        return cluster(engine.embed(x, lengths))
+
+    @torch.inference_mode()
+    def chained(fn) -> float:
+        fn(x0)  # warm
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        x = x0
+        start.record()
+        for _ in range(steps):
+            out = fn(x)
+            x = x0 + out.reshape(-1)[0].float() * 1e-30
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    wrappers = reset_launches()
+    embed_s = chained(embed)
+    full_s = chained(embed_cluster)
+    launches = read_launches(wrappers)
+    with torch.inference_mode():
+        labels = embed_cluster(x0)
+        emb = embed(x0)
+        by_kernel = {"embed": device_ms_by_kernel(lambda: embed(x0), reps=3),
+                     "cluster": device_ms_by_kernel(lambda: cluster(emb), reps=3)}
+    torch.cuda.synchronize()
+    top = {stage: {"device_ms": sum(ms.values()), "kernels": len(ms),
+                   "top": sorted(ms.items(), key=lambda kv: -kv[1])[:6]}
+           for stage, ms in by_kernel.items()}
+    audio_s = b * n / 16000 * steps
+    sizes = np.bincount(labels.cpu().numpy(), minlength=8)
+    cfg = engine.model.cfg
+    emit({"phase": "embed-cluster", "batch": [b, n], "steps": steps,
+          "tower": f"{type(engine.model).__name__} c{cfg.channels} {cfg.dtype}",
+          "params": engine.params_source, "eigensolver": "subspace",
+          "embed_seconds": embed_s, "embed_cluster_seconds": full_s,
+          "embed_audio_s_per_s": audio_s / embed_s,
+          "embed_cluster_audio_s_per_s": audio_s / full_s,
+          "cluster_share": (full_s - embed_s) / full_s, "device_ms_by_stage": top,
+          "cluster_sizes": sizes.tolist(),
+          "labels_device": str(labels.device), "launches": launches})
+    if labels.device.type != engine.device.type or labels.shape != (b,) or sizes.sum() != b:
+        raise AssertionError(f"embed-cluster: labels {labels.shape} on {labels.device}")
+    return launches
 
 
 def main() -> int:
@@ -731,10 +906,20 @@ def main() -> int:
 
     path_launches = {"diarize": launches, "identify": phase_identify(out_dir, "cuda")}
     phase_cli_detection(out_dir, "cuda")
+    path_launches["streaming"] = phase_streaming(wav, ref, "cuda")
+
+    from sdtk_tpu_torch.backends.base import get_backend
+
+    with tower("xvector"):
+        phase_tower(get_backend("gpu", device="cuda").engine, wav, "tower-xvector", win=48000)
+        path_launches["identify-xvector"] = phase_identify(out_dir, "cuda", "identify-xvector",
+                                                           XVECTOR_IDENTIFY_N)
+    path_launches["embed-cluster"] = phase_embed_cluster(diarizer.backend.engine)
 
     for row in kernel_rows:
         if row["path"] is not None:
             row["launches"] = path_launches[row["path"]][row["name"]]
+        row["launches_by_path"] = {p: counts[row["name"]] for p, counts in path_launches.items()}
     emit({"kernels": kernel_rows})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,6 +67,13 @@ class LocalEmbeddingBackend(ABC):
     def embed_waveform(self, wav: np.ndarray) -> np.ndarray:
         """float32 mono waveform @ self.sample_rate → (embedding_dim,)."""
 
+    def embed_batch(self, wavs: list[np.ndarray]) -> np.ndarray:
+        """Many waveforms → (N, embedding_dim).  This default loops over
+        embed_waveform; the GPU backend batches same-length windows."""
+        if not wavs:
+            return np.zeros((0, self.embedding_dim), np.float32)
+        return np.stack([np.asarray(self.embed_waveform(w)) for w in wavs])
+
     def check_embedding_compatibility(self, embedding: dict[str, Any]) -> dict[str, Any]:
         """Is a stored embedding record usable with this backend?  Its
         model_version must be prefixed by the backend name; otherwise the

@@ -1,15 +1,19 @@
-"""The on-device embedding backend: log-mel kernel + ECAPA-TDNN on the GPU.
+"""The on-device embedding backend: log-mel kernel + a speaker tower on the GPU.
 
 The counterpart of ``sdtk_tpu/backends/tpu.py``.  Audio windows are
 batched on the host, then featurized by the fused log-mel kernel
-(``ops/fbank_wave.py``), embedded by the ECAPA tower and L2-normalized
-on the device.  The checkpoint search and its sidecars are the JAX
-package's:
+(``ops/fbank_wave.py``), embedded by the tower and L2-normalized on the
+device.  The tower is ``ecapa`` (ECAPA-TDNN) or ``xvector``, chosen by
+the ``model`` argument, else ``$SDTK_BACKEND_TOWER`` (default ``ecapa``).
+The checkpoint search and its sidecars are the JAX package's:
 
-- checkpoint: ``$SDTK_MODEL_PATH``, then ``model_dir()/ecapatdnn.msgpack``,
-  then the bundled ``models/ecapatdnn-fam5tel.msgpack`` (at 512 channels);
+- checkpoint: ``$SDTK_MODEL_PATH``, then ``model_dir()/<slug>.msgpack``
+  (``ecapatdnn`` or ``xvector``), then the bundled one:
+  ``models/ecapatdnn-fam5tel.msgpack`` for ECAPA at 512 channels, else
+  ``models/<slug>.msgpack``;
 - ``<ckpt>.config.json``: ``{"model": {EcapaConfig overrides},
-  "frontend": {FrontendConfig overrides}, "input_norm": {"mean", "std"}}``;
+  "frontend": {FrontendConfig overrides}, "input_norm": {"mean", "std"}}``
+  (the x-vector, as in the JAX package, takes no ``model`` overrides);
 - ``<ckpt>.calib.json``: score calibration (affine into the 0.354
   threshold space); its ``suggested_merge_tau`` is the diarizer's merge
   bar;
@@ -23,6 +27,7 @@ reference computes them; the bf16 serving path is unaffected.
 from __future__ import annotations
 
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -31,26 +36,35 @@ import torch
 
 from .. import config
 from ..models.ecapa import EcapaConfig, EcapaTdnn, l2_normalize
+from ..models.xvector import XVector, XVectorConfig
 from ..ops.fbank import FrontendConfig
 from ..ops.fbank_wave import log_mel_wave
-from ..utils.checkpoint import ecapa_state_dict, read_msgpack
+from ..utils.checkpoint import ecapa_state_dict, read_msgpack, xvector_state_dict
 from ..utils.device import resolve_device
 from .base import LocalEmbeddingBackend
 
 WINDOW_SECONDS = 3.0
 HOP_SECONDS = 1.5
+# tower name → checkpoint file stem
+CKPT_SLUG = {"ecapa": "ecapatdnn", "xvector": "xvector"}
 
 
 class GpuBackend(LocalEmbeddingBackend):
     def __init__(
         self,
-        model: str = "ecapa",
+        model: str | None = None,
         channels: int = 512,
         max_windows: int = 16,
         params_path: str | Path | None = None,
         seed: int = 0,
         device: str | torch.device | None = None,
     ):
+        model = model or os.environ.get("SDTK_BACKEND_TOWER", "ecapa")
+        if model == "conformer":
+            raise NotImplementedError(
+                "tower 'conformer' is not ported yet (ROADMAP M14); use ecapa or xvector")
+        if model not in CKPT_SLUG:
+            raise ValueError(f"unknown model '{model}' (ecapa | xvector)")
         self.device = resolve_device(device)
         self._args = (model, channels, max_windows, params_path, seed)
         self._engine = None
@@ -120,15 +134,26 @@ class GpuBackend(LocalEmbeddingBackend):
         ``max_windows``-sized device batches."""
         return self.engine.embed_all_windows(np.asarray(wav, np.float32))
 
+    def embed_batch(self, wavs: list[np.ndarray]) -> np.ndarray:
+        """Many waveforms → (N, D).  Same-length waveforms of at most one
+        window go through ``engine.embed_rows`` as batched rows; longer or
+        ragged input is pooled per utterance (``embed_one``)."""
+        eng = self.engine
+        if not wavs:
+            return np.zeros((0, eng.emb_dim), np.float32)
+        n0 = len(wavs[0])
+        if n0 <= eng.window_len and all(len(w) == n0 for w in wavs):
+            return eng.embed_rows(np.stack([np.asarray(w, np.float32) for w in wavs]))
+        return np.stack([eng.embed_one(np.asarray(w, np.float32)) for w in wavs])
+
 
 class EmbedEngine:
     """Owns the tower's weights on the device and the embed call."""
 
     def __init__(self, model_name: str, channels: int, max_windows: int,
                  params_path, seed: int, device: torch.device):
-        if model_name != "ecapa":
-            raise ValueError(f"tower '{model_name}' is not ported; only 'ecapa' is")
         self.device = device
+        self._model_name = model_name
         self._channels = channels
         self._ckpt_path = self._resolve_checkpoint(params_path)
         sidecar = self._load_config_sidecar(self._ckpt_path)
@@ -145,13 +170,18 @@ class EmbedEngine:
         self.hop_len = int(HOP_SECONDS * self.cfg.sample_rate)
         self.max_windows = max_windows
 
-        model_over = dict(sidecar.get("model", {}))
-        if "dilations" in model_over:
-            model_over["dilations"] = tuple(model_over["dilations"])
-        self.model = EcapaTdnn(EcapaConfig(**({"channels": channels} | model_over)))
+        if model_name == "xvector":  # the JAX engine applies no sidecar "model" here
+            self.model = XVector(XVectorConfig(channels=channels))
+            to_state_dict = xvector_state_dict
+        else:
+            model_over = dict(sidecar.get("model", {}))
+            if "dilations" in model_over:
+                model_over["dilations"] = tuple(model_over["dilations"])
+            self.model = EcapaTdnn(EcapaConfig(**({"channels": channels} | model_over)))
+            to_state_dict = ecapa_state_dict
         self.emb_dim = self.model.cfg.emb_dim
         if self._ckpt_path is not None:
-            self.model.load_state_dict(ecapa_state_dict(read_msgpack(self._ckpt_path)))
+            self.model.load_state_dict(to_state_dict(read_msgpack(self._ckpt_path)))
             self.params_source = str(self._ckpt_path)
         else:
             self.model.reset_parameters(torch.Generator().manual_seed(seed))
@@ -166,16 +196,15 @@ class EmbedEngine:
         self.cohort = self._load_cohort()
 
     def _resolve_checkpoint(self, params_path) -> Path | None:
-        repo_models = config.repo_models_dir()
         if params_path:
             candidates = [Path(params_path)]
         else:
+            name = f"{CKPT_SLUG[self._model_name]}.msgpack"
+            bundled = ("ecapatdnn-fam5tel.msgpack"
+                       if self._model_name == "ecapa" and self._channels == 512 else name)
             override = config.model_path_override()
             candidates = ([override] if override else []) + [
-                config.model_dir() / "ecapatdnn.msgpack",
-                repo_models / ("ecapatdnn-fam5tel.msgpack" if self._channels == 512
-                               else "ecapatdnn.msgpack"),
-            ]
+                config.model_dir() / name, config.repo_models_dir() / bundled]
         self._searched = candidates
         return next((p for p in candidates if p.exists()), None)
 
@@ -269,3 +298,27 @@ class EmbedEngine:
     def embed_one(self, wav: np.ndarray) -> np.ndarray:
         pooled = self.embed_all_windows(wav).mean(axis=0)
         return (pooled / max(np.linalg.norm(pooled), 1e-12)).astype(np.float32)
+
+    def embed_rows(self, rows: np.ndarray, lengths: np.ndarray | None = None) -> np.ndarray:
+        """(N, n) same-length rows of n ≤ window_len samples → (N, D) unit
+        rows.
+
+        Rows are zero-padded to L = window_len / 2 samples when they fit in
+        it, else to window_len: the JAX engine's length buckets, which fix
+        the frame count and so the result.  The JAX engine also pads the
+        row count up to a bucket W ∈ {1, 4, 16}, for XLA's static shapes
+        and the cost of its host transfer.  Here the kernel and the tower
+        take any row count without a new compile, so the rows go in calls
+        of up to ``max_windows`` rows with no pad rows, which would cost a
+        whole window of device work each."""
+        n_rows, n = rows.shape
+        if n_rows == 0:
+            return np.zeros((0, self.emb_dim), np.float32)
+        half = self.window_len // 2
+        padded = np.zeros((n_rows, half if n <= half else self.window_len), np.float32)
+        padded[:, :n] = rows
+        if lengths is None:
+            lengths = np.full(n_rows, max(n, self.cfg.win_length), np.int32)
+        W = self.max_windows
+        return np.concatenate([self.embed(padded[i : i + W], lengths[i : i + W]).cpu().numpy()
+                               for i in range(0, n_rows, W)])

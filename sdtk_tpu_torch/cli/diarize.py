@@ -11,7 +11,7 @@ from .common import add_device, add_quiet, err, info
 
 
 def cmd_run(args) -> int:
-    from ..pipeline.diarize import DiarizeConfig, Diarizer, to_rttm
+    from ..pipeline.diarize import DiarizeConfig, Diarizer, to_rttm, to_transcript_skeleton
 
     cfg = DiarizeConfig(
         window_seconds=args.window,
@@ -41,6 +41,8 @@ def cmd_run(args) -> int:
 
     if args.format == "rttm":
         out = to_rttm(result, recording_id=args.recording_id)
+    elif args.format == "transcript":
+        out = json.dumps(to_transcript_skeleton(result), indent=2)
     else:
         payload = {
             "n_speakers": result["n_speakers"],
@@ -67,7 +69,7 @@ def main(argv: list[str] | None = None) -> int:
                                      description="Offline diarization of a WAV file on the GPU")
     add_quiet(parser)
     parser.add_argument("audio")
-    parser.add_argument("--format", choices=["json", "rttm"], default="json")
+    parser.add_argument("--format", choices=["json", "rttm", "transcript"], default="json")
     parser.add_argument("--output", "-o")
     parser.add_argument("--num-speakers", type=int)
     parser.add_argument("--max-speakers", type=int, default=8)

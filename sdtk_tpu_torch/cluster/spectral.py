@@ -6,9 +6,13 @@ the NumPy path runs on the host (a copy of the JAX package's, identical
 numerics); from 1024 windows on (or with ``force_device``) the affinity,
 Laplacian, eigensolve and k-means run in PyTorch on ``device`` — dense
 ``torch.linalg.eigh`` up to 4096 windows, subspace iteration beyond.
+``cluster_stage`` is the fixed-k device stage that the embed + cluster
+throughput measurement times.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -239,3 +243,33 @@ def spectral_cluster(
         return np.zeros(n, dtype=np.int32), 1
     labels = kmeans(_row_unit(eigvecs[:, :n_speakers]), n_speakers)
     return labels.cpu().numpy().astype(np.int32), n_speakers
+
+
+def eigengap_count(eigvals: torch.Tensor, max_speakers: int = 8) -> torch.Tensor:
+    """Speaker count as the number of Laplacian eigenvalues below
+    ``EIGVAL_TAU`` among the smallest ``max_speakers + 1``, clipped to
+    [1, max_speakers]; a 0-d tensor on the eigenvalues' device."""
+    k = min(max_speakers + 1, eigvals.shape[0])
+    return torch.clamp((eigvals[:k] < EIGVAL_TAU).sum(), 1, max_speakers)
+
+
+def cluster_stage(emb: torch.Tensor, max_speakers: int = 8,
+                  use_subspace: bool = False) -> torch.Tensor:
+    """Fixed-k clustering of (N, D) embeddings into ``max_speakers``
+    groups, all on ``emb``'s device: cosine affinity → refinement →
+    normalized Laplacian → the smallest ``max_speakers`` eigenvectors
+    (dense ``torch.linalg.eigh``, or subspace iteration) → row-normalized
+    → k-means.  Returns (N,) int64 labels on the same device.  The JAX
+    package computes this stage in XLA, with no Pallas kernel."""
+    lap = normalized_laplacian(refine_affinity(cosine_affinity(emb)))
+    if use_subspace:
+        spec = topk_eigvecs_subspace(lap, max_speakers)[1]
+    else:
+        spec = torch.linalg.eigh(lap)[1][:, :max_speakers]
+    return kmeans(_row_unit(spec), max_speakers)
+
+
+def bench_cluster_fn(max_speakers: int = 8, use_subspace: bool = False):
+    """``cluster_stage`` with its options bound, for benchmark loops."""
+    return functools.partial(cluster_stage, max_speakers=max_speakers,
+                             use_subspace=use_subspace)

@@ -96,6 +96,17 @@ def _masked_mean_std(x: torch.Tensor, m: torch.Tensor, eps: float = 1e-5
     return mean, torch.sqrt(torch.clamp(var, min=eps))
 
 
+def random_init(model: nn.Module, generator: torch.Generator) -> None:
+    """Random weights from ``generator``: N(0, 1/fan_in) kernels, zero
+    biases, identity BatchNorm (for runs without a checkpoint)."""
+    for mod in model.modules():
+        if isinstance(mod, (Conv, Dense)):
+            w = mod.weight
+            with torch.no_grad():
+                w.copy_(torch.randn(w.shape, generator=generator) / w[0].numel() ** 0.5)
+                mod.bias.zero_()
+
+
 class TdnnBlock(nn.Module):
     """Conv1d(k, dilation) → ReLU → BatchNorm (f32) → mask."""
 
@@ -219,15 +230,7 @@ class EcapaTdnn(nn.Module):
         self.embedding = Dense(2 * cfg.mfa_channels, cfg.emb_dim)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Random weights from ``generator``: N(0, 1/fan_in) kernels, zero
-        biases, identity BatchNorm (for runs without a checkpoint)."""
-        for mod in self.modules():
-            if isinstance(mod, (Conv, Dense)):
-                w = mod.weight
-                fan_in = w[0].numel()
-                with torch.no_grad():
-                    w.copy_(torch.randn(w.shape, generator=generator) / fan_in ** 0.5)
-                    mod.bias.zero_()
+        random_init(self, generator)
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         cfg = self.cfg

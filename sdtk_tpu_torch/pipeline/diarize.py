@@ -365,3 +365,14 @@ def to_rttm(result: dict[str, Any], recording_id: str = "rec") -> str:
             f"<NA> <NA> {label} <NA> <NA>"
         )
     return "\n".join(lines) + ("\n" if lines else "")
+
+
+def to_transcript_skeleton(result: dict[str, Any]) -> dict[str, Any]:
+    """Speechmatics-format transcript skeleton (one empty pseudo-word per
+    segment), so diarization output feeds the assign / review tooling.
+    ``metadata.source`` is the JAX package's, so either package writes
+    the same file."""
+    items = [{"type": "word", "start_time": float(start), "end_time": float(end),
+              "speaker": label, "alternatives": [{"content": "", "speaker": label}]}
+             for start, end, label in result["segments"]]
+    return {"results": items, "metadata": {"source": "sdtk_tpu.diarize"}}

@@ -1,4 +1,4 @@
-"""Flax msgpack checkpoints without flax, and the ECAPA weight converter.
+"""Flax msgpack checkpoints without flax, and the tower weight converters.
 
 Flax writes a checkpoint as a msgpack map whose array leaves are msgpack
 extension objects: type 1 (ndarray) holds a packed ``(shape, dtype name,
@@ -98,3 +98,13 @@ def ecapa_state_dict(jax_tree: dict) -> dict[str, torch.Tensor]:
         mod, _, leaf = key.rpartition(".")
         sd[f"{mod}.{names[leaf]}"] = torch.from_numpy(np.array(arr, np.float32))
     return sd
+
+
+def xvector_state_dict(jax_tree: dict) -> dict[str, torch.Tensor]:
+    """JAX x-vector variables → the port's ``XVector.state_dict()``.  The
+    tower is built from ECAPA's ``Conv``/``Dense``/``BatchNorm`` modules, so
+    the conversion is ECAPA's: ``tdnn{1..5}.conv`` kernels (k, in, out) →
+    (out, in, k), BatchNorm ``scale``/``bias`` and ``batch_stats``
+    ``mean``/``var`` on each block, ``segment6.kernel`` (3000, 512) →
+    (512, 3000)."""
+    return ecapa_state_dict(jax_tree)

@@ -42,7 +42,9 @@ def test_port_imports_without_jax_or_sdtk_tpu():
         "assert not bad, bad\n"
         "for m in ('sdtk_tpu_torch.ops.cosine', 'sdtk_tpu_torch.ops.topk_fused',\n"
         "          'sdtk_tpu_torch.ops.fbank_frames', 'sdtk_tpu_torch.store.profiles',\n"
-        "          'sdtk_tpu_torch.pipeline.identify', 'sdtk_tpu_torch.cli.detection'):\n"
+        "          'sdtk_tpu_torch.pipeline.identify', 'sdtk_tpu_torch.cli.detection',\n"
+        "          'sdtk_tpu_torch.models.xvector', 'sdtk_tpu_torch.pipeline.streaming',\n"
+        "          'sdtk_tpu_torch.cluster.ahc', 'sdtk_tpu_torch.cluster.spectral'):\n"
         "    assert m in mods, m\n"
         "assert 'yaml' not in sys.modules\n"
         "print(len(mods))\n"

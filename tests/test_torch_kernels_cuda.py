@@ -37,7 +37,9 @@ def _signal(b, n, seed=0):
 # can flip a bf16 rounding of one power bin (≤ ~8e-3 in ln): bars with 6x room.
 # (The bf16 kernel's hardware logarithm adds ~1e-6.)
 # (1, 400) is one frame; (32, 48000) the identify path's chunk of 3 s windows;
-# (200, 400) and (40, 1000) put 128 and 26 waveform rows into one tile of frames.
+# (16, 24000) the streaming path's chunk of 1.5 s windows; (1024, 48000) the
+# embed + cluster batch; (200, 400) and (40, 1000) put 128 and 26 waveform rows
+# into one tile of frames.
 @pytest.mark.parametrize("cfg,tol", [
     (fbank.FrontendConfig(), 0.05),
     (fbank.FrontendConfig(log_scale="db", mel_fmin=0.0), 0.25),
@@ -45,7 +47,7 @@ def _signal(b, n, seed=0):
     (fbank.FrontendConfig(center=True, preemphasis=0.0), 0.05),
 ], ids=["bf16", "bf16-db-fmin0", "f32", "center-nopreemph"])
 @pytest.mark.parametrize("shape", [(3, 4000), (128, 16000), (32, 48000), (1, 400), (200, 400),
-                                   (40, 1000)])
+                                   (40, 1000), (16, 24000), (1024, 48000)])
 def test_log_mel_wave_kernel_matches_plain(cuda, cfg, tol, shape):
     x = _signal(*shape).to(cuda)
     lengths = torch.full((shape[0],), shape[1], device=cuda)
