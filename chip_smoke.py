@@ -50,6 +50,20 @@ any failure raises and exits non-zero:
              use_subspace=True)`` on a (1024, 48 000) batch, 20 steps each
              chained on the one before, by CUDA events; embed-only and
              embed + cluster audio-s per s and the cluster's share;
+15. assign — ``cli.assign`` (speaker-assign-gpu) on AssemblyAI and
+             Speechmatics transcripts of the phase-5 meeting, labels
+             shuffled, against the identify store plus voices 0-2 (N =
+             8 195, D = 192), fused and dense route: every label to its true
+             voice with an ``embedding_match`` signal, the log-mel kernel and
+             the route's scoring kernel launched; ``show`` and ``apply``; wall
+             seconds per call and its split; both scoring kernels against
+             their plain versions at each label's window count;
+16. process — ``cli.process`` (speaker-process-gpu) ``process DIR --backend
+             local --parallel 2`` on three meetings, the kernels built anew
+             under the worker threads: every item completed, every entry
+             assigned, ``transcribe_local`` and ``speaker_assign`` in every
+             recording's steps, the log-mel kernel launched; seconds per
+             recording, audio-s per s, labels mapped to enrolled voices;
 
 The kernel phase holds all four kernels (log-mel from the waveform, the
 cosine scores, the fused identify top-k, log-mel from frames) at the
@@ -812,6 +826,270 @@ def phase_embed_cluster(engine) -> dict:
     return launches
 
 
+def meeting_transcripts(ref, seed: int) -> tuple[dict, dict, dict]:
+    """An AssemblyAI (ms) and a Speechmatics (s, one item per ~0.4 s word)
+    transcript of a meeting's reference turns, each with its labels
+    shuffled; and each format's label -> true voice id."""
+    import numpy as np
+
+    voices = sorted({spk for _, _, spk in ref})
+    order = np.random.default_rng(seed).permutation(len(voices))
+    aai = {spk: "ABCDEFGH"[i] for spk, i in zip(voices, order)}
+    sm = {spk: f"S{i + 1}" for spk, i in zip(voices, order[::-1])}
+    utterances, words = [], []
+    for start, end, spk in ref:
+        utterances.append({"speaker": aai[spk], "start": int(round(start * 1000)),
+                           "end": int(round(end * 1000)), "text": "..."})
+        n = max(1, int(round((end - start) / 0.4)))
+        for k in range(n):
+            words.append({"type": "word", "start_time": round(start + (end - start) * k / n, 3),
+                          "end_time": round(start + (end - start) * (k + 1) / n, 3),
+                          "speaker": sm[spk], "alternatives": [{"content": "w"}]})
+    truth = {"assemblyai": {aai[spk]: f"voice-{spk[3:]}" for spk in voices},
+             "speechmatics": {sm[spk]: f"voice-{spk[3:]}" for spk in voices}}
+    return {"utterances": utterances}, {"results": words}, truth
+
+
+def phase_assign(work: Path, device: str) -> dict:
+    """``speaker-assign-gpu`` on the card, through ``cli.assign.main``.  The
+    store is the identify phase's (8 192 rows of the tower's width, D =
+    192) with voices 0, 1 and 2 enrolled (``cli.detection``, trust high)
+    from held-out 12 s utterances: N = 8 195.  The meeting
+    ``build_meeting(0, 3, 20, 3.0)`` as a WAV, an AssemblyAI and a
+    Speechmatics transcript of its turns with shuffled labels; each assigned
+    on the fused route (``SDTK_IDENTIFY_TOPK_N`` at N) and on the dense
+    route, then ``show --format json`` and ``apply`` on the first.  Below
+    Q*N*D = 2^24 the dense route scores in NumPy (``ops.cosine.score_rows``,
+    the JAX package's rule): at N = 1 024 no label (W <= 16) would reach
+    the cosine kernel, at N = 8 195 the two 16-window labels do.  Then each
+    label's windows against the two scoring kernels and their plain
+    versions.  Returns the launch counts of the path."""
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch.backends.base import get_backend
+    from sdtk_tpu_torch.cli import assign as cli_assign
+    from sdtk_tpu_torch.cli import detection
+    from sdtk_tpu_torch.data.synth import build_meeting, synth_utterance
+    from sdtk_tpu_torch.ops import cosine, topk, topk_fused
+    from sdtk_tpu_torch.ops.cosine import score_rows
+    from sdtk_tpu_torch.ops.topk import identify_topk
+    from sdtk_tpu_torch.store import profiles as P
+    from sdtk_tpu_torch.transcripts import get_speaker_segments
+    from sdtk_tpu_torch.utils.audio import save_wav
+
+    store = work / "assign-store"
+    shutil.rmtree(store, ignore_errors=True)
+    t0 = time.perf_counter()
+    shutil.copytree(work / "identify-store", store)
+    os.environ["SPEAKERS_EMBEDDINGS_DIR"] = str(store)
+    for v in range(3):
+        # utterance 99: held out from every meeting (their turns are 0-19, 1000+)
+        save_wav(work / f"voice-{v}-enroll.wav", synth_utterance(v, 99, 12.0))
+        enroll_wav = str(work / f"voice-{v}-enroll.wav")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rcs = (detection.main(["-q", "add", f"voice-{v}", "--name", f"Voice {v}"]),
+                   detection.main(["-q", "enroll", f"voice-{v}", enroll_wav,
+                                   "--trust-level", "high", "--device", device]))
+        if any(rcs):
+            raise AssertionError(f"enrolling voice-{v}: rcs {rcs}")
+    store_s = time.perf_counter() - t0
+    wav, ref = build_meeting(0, 3, 20, 3.0)
+    save_wav(work / "assign-meeting.wav", wav)
+    aai, sm, truth = meeting_transcripts(ref, seed=8)
+    # AssemblyAI last: its assignment file is the one left for show and apply
+    transcripts = {"speechmatics": sm, "assemblyai": aai}
+    for fmt, doc in transcripts.items():
+        (work / f"assign-{fmt}.json").write_text(json.dumps(doc))
+    backend = get_backend("gpu", device=device)
+    pm = P.ProfileMatrix.build(backend.name, speakers=P.list_all_speakers())
+    n = len(pm)
+
+    def run(*argv) -> tuple[int, str]:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_assign.main(list(argv))
+        return rc, out.getvalue()
+
+    wrappers = reset_launches()
+    torch.cuda.synchronize()
+    results, wall, by_route = {}, {}, {}
+    for route, fused_n in (("fused", n), ("dense", 10 * n)):
+        os.environ["SDTK_IDENTIFY_TOPK_N"] = str(fused_n)
+        before = read_launches(wrappers)
+        for fmt in transcripts:
+            t0 = time.perf_counter()
+            rc, out = run("assign", str(work / "assign-meeting.wav"), "-t",
+                          str(work / f"assign-{fmt}.json"), "--format", "json", "--device", device)
+            wall[route, fmt] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"assign {route} {fmt}: rc {rc}")
+            results[route, fmt] = json.loads(out)["mappings"]
+        by_route[route] = {k: v - before[k] for k, v in read_launches(wrappers).items()}
+    os.environ.pop("SDTK_IDENTIFY_TOPK_N", None)
+    rc_show, shown = run("show", str(work / "assign-meeting.wav"), "--format", "json")
+    rc_apply, applied = run("apply", str(work / "assign-meeting.wav"), "-t",
+                            str(work / "assign-assemblyai.json"))
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+
+    # where an assign call's time goes (warm): one store load (each label's
+    # identify loads the store once), then per label its window embeddings
+    # and the scoring on each route; then each label's windows against both
+    # kernels and their plain versions
+    t0 = time.perf_counter()
+    P.ProfileMatrix.build(backend.name, speakers=P.list_all_speakers())
+    split, checks = {"store_load_per_label": time.perf_counter() - t0}, {}
+    p_dev = torch.from_numpy(pm.matrix).to(device)
+    k = 64 * max(sum(r["speaker_id"] == sid for r in pm.rows)
+                 for sid in {r["speaker_id"] for r in pm.rows})
+    for label in truth["assemblyai"]:
+        segs = [(s["start"], s["end"]) for s in get_speaker_segments(aai, label)]
+        t = [time.perf_counter()]
+        q = backend.embed_windows(backend._load(work / "assign-meeting.wav", segs))
+        t.append(time.perf_counter())
+        identify_topk(q, pm.matrix, k=k, device=backend.device)
+        t.append(time.perf_counter())
+        score_rows(q, pm.matrix, device=backend.device)
+        t.append(time.perf_counter())
+        split[label] = {"windows": int(q.shape[0]), **dict(zip(
+            ("embed", "score_fused", "score_dense"), np.diff(t).tolist()))}
+        q_dev = torch.from_numpy(q).to(device)
+        qb = topk.bucket_windows(q_dev).contiguous()
+        s_k, i_k = topk_fused.identify_topk_cuda(qb, p_dev, k)
+        s_p, i_p = topk.identify_topk_plain(qb, p_dev, k)
+        cos_err = float((cosine.cosine_cuda(q_dev, p_dev) - cosine.cosine_plain(q_dev, p_dev))
+                        .abs().max())
+        checks[label] = {"W": int(q.shape[0]), "W_bucketed": int(qb.shape[0]),
+                         "dense_route_on_card": q.size * n >= cosine.NUMPY_MAX_WORK,
+                         "cosine_max_abs_err": cos_err,
+                         "topk_max_abs_err": float((s_k - s_p).abs().max()),
+                         "topk_survivors_equal": set(i_k.tolist()) == set(i_p.tolist())}
+    emit({"phase": "assign", "profiles": n, "dim": int(pm.matrix.shape[1]), "k": k,
+          "store_copy_and_enroll_seconds": store_s, "audio_seconds": len(wav) / 16000,
+          "labels": {fmt: sorted(tr) for fmt, tr in truth.items()},
+          "assign_seconds": {f"{r}/{f}": s for (r, f), s in wall.items()},
+          "split_seconds_per_label": split,
+          "scores": {f"{r}/{f}": {lab: [m["speaker_id"], m["score"]] for lab, m in mp.items()}
+                     for (r, f), mp in results.items()},
+          "kernel_vs_plain": checks, "tol": SCORE_TOL, "show_rc": rc_show,
+          "apply_rc": rc_apply, "launches": launches, "launches_by_route": by_route})
+    for (route, fmt), mappings in results.items():
+        got = {lab: m["speaker_id"] for lab, m in mappings.items()}
+        if got != truth[fmt]:
+            raise AssertionError(f"assign {route} {fmt}: {got} != {truth[fmt]}")
+        if not all(any(s["type"] == "embedding_match" for s in m["signals"])
+                   for m in mappings.values()):
+            raise AssertionError(f"assign {route} {fmt}: a label without an embedding_match")
+    mapped = json.loads(applied) if rc_apply == 0 else {}
+    names = {u["speaker"] for u in mapped.get("utterances", [])}
+    if rc_show != 0 or json.loads(shown)["mappings"] != results["dense", "assemblyai"] \
+            or names != {"Voice 0", "Voice 1", "Voice 2"}:
+        raise AssertionError(f"show rc {rc_show}, apply rc {rc_apply}, names {names}")
+    for label, c in checks.items():
+        if not (c["cosine_max_abs_err"] <= SCORE_TOL and c["topk_max_abs_err"] <= SCORE_TOL
+                and c["topk_survivors_equal"]):
+            raise AssertionError(f"assign label {label}: kernel vs plain {c}")
+    if (launches["log_mel_wave"] <= 0 or by_route["fused"]["identify_topk"] <= 0
+            or by_route["dense"]["cosine"] <= 0):
+        raise AssertionError(f"a kernel of the assign path was not launched: {by_route}")
+    return launches
+
+
+def phase_process(work: Path, device: str) -> dict:
+    """``speaker-process-gpu process DIR --backend local --parallel 2``
+    through ``cli.process.main``: three meetings (``build_meeting(m, 3, 8,
+    3.0)``, m = 1, 2, 3, voices 0-2) in a fresh directory, against the
+    assign phase's store, with a context that expects the three voices.
+    The kernels are built anew in a fresh directory by the two worker
+    threads (as on a fresh checkout), so the first build happens under
+    the threads.  Launch counters are bumped without a lock: under two
+    threads a count may lose an update, so the phase reads them only as
+    "launched or not" (> 0).  Returns the launch counts of the path."""
+    import torch
+
+    from sdtk_tpu_torch.cli import process as cli_process
+    from sdtk_tpu_torch.data.synth import build_meeting
+    from sdtk_tpu_torch.pipeline import process as proc
+    from sdtk_tpu_torch.store import assignments, catalog
+    from sdtk_tpu_torch.store.queue import ProcessingQueue
+    from sdtk_tpu_torch.utils import build
+    from sdtk_tpu_torch.utils.audio import save_wav
+
+    src = work / "process-in"
+    shutil.rmtree(src, ignore_errors=True)
+    src.mkdir()
+    audio_s = {}
+    for m in (1, 2, 3):
+        wav, _ = build_meeting(m, 3, 8, 3.0)
+        save_wav(src / f"meeting-{m}.wav", wav)
+        audio_s[f"meeting-{m}.wav"] = len(wav) / 16000
+    catalog.create_context("standup", speakers=["voice-0", "voice-1", "voice-2"], force=True)
+    fresh = work / "fresh-build"
+    shutil.rmtree(fresh, ignore_errors=True)
+    build_dir, loaded = build.BUILD_DIR, dict(build._loaded)
+    build.BUILD_DIR = fresh
+    build._loaded.clear()
+    results, real = [], proc.process_single
+
+    def recorded(*args, **kwargs):
+        res = real(*args, **kwargs)
+        results.append(res)
+        return res
+
+    proc.process_single = recorded
+    wrappers = reset_launches()
+    torch.cuda.synchronize()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_process.main(["-q", "process", str(src), "--backend", "local", "--parallel",
+                                   "2", "--context", "standup", "--device", device])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        proc.process_single = real
+        built = sorted(p.name for p in fresh.iterdir()) if fresh.exists() else []
+        build.BUILD_DIR = build_dir
+        build._loaded.clear()
+        build._loaded.update(loaded)
+    launches = read_launches(wrappers)
+    from datetime import datetime
+
+    items = ProcessingQueue().items()
+    per_rec, mapped = {}, {}
+    for item in items:
+        name = Path(item["audio_path"]).name
+        per_rec[name] = (datetime.fromisoformat(item["completed_at"])
+                         - datetime.fromisoformat(item["started_at"])).total_seconds()
+        a = assignments.load_assignments(item["b3sum"]) or {"mappings": {}}
+        mapped[name] = {"labels": len(a["mappings"]),
+                        "mapped_to_enrolled": sum(str(m.get("speaker_id")).startswith("voice-")
+                                                  for m in a["mappings"].values()),
+                        "ids": sorted(str(m.get("speaker_id")) for m in a["mappings"].values())}
+    statuses = {Path(e["recording"]["path"]).name: catalog.compute_status(e)
+                for e in catalog.list_entries() if Path(e["recording"]["path"]).parent == src}
+    steps = {Path(r.audio_path).name: r.steps_completed for r in results}
+    emit({"phase": "process", "rc": rc, "recordings": len(audio_s), "parallel": 2,
+          "audio_seconds": sum(audio_s.values()), "wall_seconds": wall,
+          "audio_s_per_s": sum(audio_s.values()) / wall, "seconds_per_recording": per_rec,
+          "queue": {Path(i["audio_path"]).name: i["status"] for i in items},
+          "catalog": statuses, "steps": steps, "labels_mapped": mapped,
+          "built_under_threads": built, "launches": launches})
+    if rc != 0 or sorted(i["status"] for i in items) != ["completed"] * 3:
+        raise AssertionError(f"process: rc {rc}, queue {[i['status'] for i in items]}")
+    if sorted(statuses.values()) != ["assigned"] * 3:
+        raise AssertionError(f"process: catalog {statuses}")
+    if len(steps) != 3 or not all({"transcribe_local", "speaker_assign"} <= set(s)
+                                  for s in steps.values()):
+        raise AssertionError(f"process: steps {steps}")
+    if any(name.endswith(".tmp") for name in built) or not built:
+        raise AssertionError(f"process: threaded build left {built}")
+    if launches["log_mel_wave"] <= 0:
+        raise AssertionError("kernel log_mel_wave was not launched on the process path")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "sdtk_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -915,6 +1193,8 @@ def main() -> int:
         path_launches["identify-xvector"] = phase_identify(out_dir, "cuda", "identify-xvector",
                                                            XVECTOR_IDENTIFY_N)
     path_launches["embed-cluster"] = phase_embed_cluster(diarizer.backend.engine)
+    path_launches["assign"] = phase_assign(out_dir, "cuda")
+    path_launches["process"] = phase_process(out_dir, "cuda")
 
     for row in kernel_rows:
         if row["path"] is not None:

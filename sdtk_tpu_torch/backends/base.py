@@ -14,6 +14,7 @@ from __future__ import annotations
 import importlib
 import os
 import sys
+import threading
 from abc import ABC, abstractmethod
 from pathlib import Path
 from typing import Any
@@ -199,8 +200,10 @@ class LocalEmbeddingBackend(ABC):
 
 _REGISTRY: dict[str, str] = {
     "gpu": "sdtk_tpu_torch.backends.gpu:GpuBackend",
+    "fake": "sdtk_tpu_torch.backends.fake:FakeBackend",
 }
 _instances: dict[tuple, LocalEmbeddingBackend] = {}
+_registry_lock = threading.Lock()  # one instance per key, whichever thread asks first
 
 
 def register_backend(name: str, target: str | LocalEmbeddingBackend) -> None:
@@ -223,11 +226,12 @@ def get_backend(name: str | None = None, **kwargs: Any) -> LocalEmbeddingBackend
     if name not in _REGISTRY:
         raise ValueError(f"Unknown backend '{name}'. Available: {', '.join(sorted(_REGISTRY))}")
     key = (name, *sorted(kwargs.items()))
-    if key not in _instances:
-        module_name, _, cls_name = _REGISTRY[name].partition(":")
-        cls = getattr(importlib.import_module(module_name), cls_name)
-        _instances[key] = cls(**kwargs)
-    return _instances[key]
+    with _registry_lock:
+        if key not in _instances:
+            module_name, _, cls_name = _REGISTRY[name].partition(":")
+            cls = getattr(importlib.import_module(module_name), cls_name)
+            _instances[key] = cls(**kwargs)
+        return _instances[key]
 
 
 def list_backends() -> list[str]:

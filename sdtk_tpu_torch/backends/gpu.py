@@ -29,6 +29,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -68,6 +69,7 @@ class GpuBackend(LocalEmbeddingBackend):
         self.device = resolve_device(device)
         self._args = (model, channels, max_windows, params_path, seed)
         self._engine = None
+        self._engine_lock = threading.Lock()  # worker threads share one backend
 
     @property
     def name(self) -> str:
@@ -76,7 +78,9 @@ class GpuBackend(LocalEmbeddingBackend):
     @property
     def engine(self) -> "EmbedEngine":
         if self._engine is None:
-            self._engine = EmbedEngine(*self._args, device=self.device)
+            with self._engine_lock:
+                if self._engine is None:
+                    self._engine = EmbedEngine(*self._args, device=self.device)
         return self._engine
 
     @property

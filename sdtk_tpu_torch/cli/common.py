@@ -70,6 +70,32 @@ def add_quiet(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("-q", "--quiet", action="store_true", help="Suppress status output")
 
 
+def add_verbose_version(parser: argparse.ArgumentParser) -> None:
+    """-v/--verbose and -V/--version, as every JAX package tool has them."""
+    from .. import __version__
+
+    parser.add_argument("-v", "--verbose", action="store_true", help="Verbose output")
+    parser.add_argument("-V", "--version", action="version",
+                        version=f"{parser.prog} (sdtk-tpu {__version__})")
+
+
+def parse_cli(parser: argparse.ArgumentParser, argv: list[str] | None) -> argparse.Namespace:
+    """Parse with -q/-v accepted after the subcommand too (a flag given
+    before it is kept), and both defaulted to False."""
+    for action in parser._actions:  # noqa: SLF001 — argparse introspection
+        if isinstance(action, argparse._SubParsersAction):  # noqa: SLF001
+            for sp in action.choices.values():
+                opts = {o for a in sp._actions for o in a.option_strings}  # noqa: SLF001
+                for flags in (("-q", "--quiet"), ("-v", "--verbose")):
+                    if not opts & set(flags):
+                        sp.add_argument(*flags, action="store_true",
+                                        default=argparse.SUPPRESS, help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    args.quiet = getattr(args, "quiet", False)
+    args.verbose = getattr(args, "verbose", False)
+    return args
+
+
 def add_device(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; 'cpu' runs the plain versions)")

@@ -5,8 +5,7 @@ The counterpart of ``sdtk_tpu/cli/detection.py`` for the subcommands
 ``add``, ``list``, ``show``, ``enroll``, ``embeddings``, ``identify`` and
 ``verify``: same messages and return codes, plus ``--device`` on the
 commands that embed audio (default cuda; ``cpu`` runs the plain
-versions).  The other subcommands and ``enroll --from-transcript`` are
-not ported yet.
+versions).  The other subcommands are not ported yet.
 """
 
 from __future__ import annotations
@@ -112,8 +111,27 @@ def cmd_enroll(args) -> int:
             err(f"Error: {e}")
             return 1
     elif args.from_transcript:
-        err("Error: --from-transcript is not supported by this port yet; use --segments")
-        return 1
+        transcript_path = Path(args.from_transcript)
+        if not transcript_path.exists():
+            err(f"Error: Transcript file not found: {transcript_path}")
+            return 1
+        if not args.speaker_label:
+            err("Error: --speaker-label required with --from-transcript")
+            return 1
+        from ..transcripts import extract_segments_as_tuples, load_transcript
+
+        try:
+            segments = extract_segments_as_tuples(load_transcript(transcript_path),
+                                                  args.speaker_label)
+        except Exception as e:  # noqa: BLE001 — CLI boundary
+            err(f"Error extracting segments: {e}")
+            return 1
+        if not segments:
+            err(f"Error: No segments found for speaker '{args.speaker_label}' in transcript.")
+            return 1
+        total = sum(e - s for s, e in segments)
+        status(f"Found {len(segments)} segments for speaker "
+               f"'{args.speaker_label}' ({total:.1f}s total)")
     elif args.from_stdin:
         try:
             segments = _read_stdin_segments()
@@ -280,7 +298,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("audio")
     p.add_argument("--backend", "-b")
     p.add_argument("--segments", "-s", help='Time ranges, e.g. "0-5,10.5-15"')
-    p.add_argument("--from-transcript", "-t", metavar="JSON", help="Not ported yet")
+    p.add_argument("--from-transcript", "-t", metavar="JSON",
+                   help="Transcript JSON (AssemblyAI or Speechmatics) to take segments from")
     p.add_argument("--speaker-label", "-l")
     p.add_argument("--from-stdin", action="store_true")
     p.add_argument("-n", "--dry-run", action="store_true")

@@ -5,6 +5,7 @@
   package: either package reads a store the other wrote)
 - ``SPEAKER_DETECTION_BACKEND`` default embedding backend name (``gpu``)
 - ``SPEAKER_DETECTION_DEBUG``   debug dumps
+- ``SPEAKER_LLM_CACHE_DIR``     LLM analysis cache
 - ``SDTK_MODEL_DIR``, ``SDTK_MODEL_PATH``  checkpoints
 """
 
@@ -38,6 +39,30 @@ def samples_dir() -> Path:
     return speakers_dir() / "samples"
 
 
+def catalog_dir() -> Path:
+    """Recording catalog entries (catalog/{b3sum}.yaml)."""
+    return speakers_dir() / "catalog"
+
+
+def assignments_dir() -> Path:
+    """Assignment files (assignments/{b3sum}.yaml)."""
+    return speakers_dir() / "assignments"
+
+
+def contexts_path() -> Path:
+    """Context registry (contexts.yaml)."""
+    return speakers_dir() / "contexts.yaml"
+
+
+def queue_path() -> Path:
+    """Persistent processing queue (process_queue.yaml)."""
+    return speakers_dir() / "process_queue.yaml"
+
+
+def llm_cache_dir() -> Path:
+    return Path(os.environ.get("SPEAKER_LLM_CACHE_DIR", os.path.expanduser("~/.cache/speaker-llm")))
+
+
 def default_backend() -> str:
     return os.environ.get(DEFAULT_BACKEND_ENV, DEFAULT_BACKEND)
 
@@ -50,7 +75,7 @@ def ensure_layout() -> Path:
     """Create the file-DB directory layout (the JAX package's, catalog and
     assignments included); returns the root."""
     root = speakers_dir()
-    for d in (db_dir(), embeddings_dir(), samples_dir(), root / "catalog", root / "assignments"):
+    for d in (db_dir(), embeddings_dir(), samples_dir(), catalog_dir(), assignments_dir()):
         d.mkdir(parents=True, exist_ok=True)
     return root
 

@@ -200,12 +200,14 @@ class Diarizer:
 
     def _embed_windows(self, wav: np.ndarray, starts_sec: np.ndarray) -> np.ndarray:
         """Embed all windows in fixed-size device batches (pad rows are
-        zero windows of full length, as in the JAX package)."""
+        zero windows of full length, as in the JAX package).  A backend
+        without a device engine (``fake``) embeds the real windows one by
+        one, as the JAX package's does."""
         cfg = self.cfg
         sr = cfg.sample_rate
         win = int(cfg.window_seconds * sr)
         chunk = cfg.embed_chunk
-        engine = self.backend.engine
+        engine = getattr(self.backend, "engine", None)
         out = []
         for i in range(0, len(starts_sec), chunk):
             batch_starts = starts_sec[i : i + chunk]
@@ -216,6 +218,10 @@ class Diarizer:
                 seg = wav[a : a + win]
                 windows[j, : len(seg)] = seg
                 lengths[j] = max(len(seg), 400)
+            if engine is None:
+                out.append(np.stack([self.backend.embed_waveform(w)
+                                     for w in windows[: len(batch_starts)]]))
+                continue
             emb = engine.embed(windows, lengths)
             out.append(emb[: len(batch_starts)].float().cpu().numpy())
         return np.concatenate(out, axis=0)

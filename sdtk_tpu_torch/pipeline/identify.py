@@ -4,7 +4,8 @@ The counterpart of ``sdtk_tpu/pipeline/identify.py``: same semantics and
 output rows.  Each entry point takes the backend by name (default
 $SPEAKER_DETECTION_BACKEND, else ``gpu``) and the device its scoring and
 embedding run on (default CUDA; ``device="cpu"`` runs the plain
-versions).  Transcript-driven segments are not ported yet.
+versions).  Segments come from an explicit list, or from a transcript and
+one of its speaker labels (``transcripts.extract_segments_as_tuples``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Any
 from .. import config
 from ..backends.base import DEFAULT_THRESHOLD, LocalEmbeddingBackend, get_backend
 from ..store import profiles as P
+from ..transcripts import extract_segments_as_tuples, load_transcript
 from ..utils.device import resolve_device
 from ..utils.hashing import compute_b3sum
 
@@ -32,8 +34,7 @@ def resolve_segments(segments: list[tuple[float, float]] | None = None,
     if segments:
         return list(segments)
     if transcript and speaker_label:
-        raise NotImplementedError("segments from a transcript need the transcripts module, "
-                                  "which the port does not have yet; pass segments")
+        return extract_segments_as_tuples(load_transcript(transcript), speaker_label)
     return None
 
 

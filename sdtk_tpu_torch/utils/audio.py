@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import struct
 import wave
+from dataclasses import dataclass
 from math import gcd
 from pathlib import Path
 
@@ -19,8 +20,25 @@ import numpy as np
 TARGET_SR = 16000
 
 
+@dataclass
+class AudioInfo:
+    """Container metadata (the JAX package's ``probe`` result)."""
+
+    sample_rate: int
+    channels: int
+    n_frames: int
+    duration: float
+    format: str
+
+
 class AudioFormatError(ValueError):
     pass
+
+
+def _check_wav(path: Path) -> None:
+    if path.suffix.lower() != ".wav":
+        raise AudioFormatError(f"unsupported container: {path.suffix} — the port reads .wav "
+                               f"only so far")
 
 
 def _decode_wav(path: str | Path) -> tuple[np.ndarray, int]:
@@ -76,14 +94,21 @@ def load_audio(path: str | Path, target_sr: int = TARGET_SR) -> tuple[np.ndarray
     """WAV → mono float32 at ``target_sr`` (0 keeps the file's rate);
     returns (samples, rate)."""
     path = Path(path)
-    if path.suffix.lower() != ".wav":
-        raise AudioFormatError(f"unsupported container: {path.suffix} — the port reads .wav "
-                               f"only so far")
+    _check_wav(path)
     x, sr = _decode_wav(path)
     x = x.mean(axis=1)
     if target_sr and sr != target_sr:
         x, sr = resample(x, sr, target_sr), target_sr
     return np.ascontiguousarray(x, dtype=np.float32), sr
+
+
+def probe(path: str | Path) -> AudioInfo:
+    """Sample rate, channels, frames, duration and format of a WAV file;
+    any other container raises :class:`AudioFormatError`."""
+    path = Path(path)
+    _check_wav(path)
+    x, sr = _decode_wav(path)
+    return AudioInfo(sr, x.shape[1], x.shape[0], x.shape[0] / sr, "wav")
 
 
 def load_wav(path: str | Path, target_sr: int = TARGET_SR) -> np.ndarray:

@@ -3,11 +3,23 @@
 Entry points run on ``cuda`` unless the caller names another device.
 Asking for CUDA on a machine without it raises: nothing falls back to
 the CPU behind the caller's back.
+
+:data:`DEVICE_ERRORS` are the failures that no caller may degrade
+around: a kernel that did not build or launch, and torch's own CUDA
+errors.  Code that keeps the JAX package's graceful degradation (the
+assignment collectors, the batch orchestrator's steps) re-raises these
+and degrades on everything else.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .build import KernelError
+
+DEVICE_ERRORS: tuple[type[BaseException], ...] = (
+    KernelError, torch.cuda.OutOfMemoryError,
+    *((torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ()))
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

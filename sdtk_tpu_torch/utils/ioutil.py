@@ -57,3 +57,17 @@ def load_yaml(path: str | Path) -> Any:
 
     with open(path, "r", encoding="utf-8") as f:
         return yaml.safe_load(f)
+
+
+def load_yaml_or(path: str | Path, default: Any = None) -> Any:
+    try:
+        return load_yaml(path)
+    except FileNotFoundError:
+        return default
+
+
+def load_json_or(path: str | Path, default: Any = None) -> Any:
+    try:
+        return load_json(path)
+    except FileNotFoundError:
+        return default

@@ -246,16 +246,23 @@ def test_gpu_backend_on_cpu_matches_tpu_backend(narrow_checkpoint, voices, tmp_p
                - results["jax-verify"]["confidence"]) <= 1e-4
 
 
-def test_entry_points_default_to_cuda(monkeypatch, voices, speakers_dir):
+def test_entry_points_default_to_cuda(monkeypatch, voices, speakers_dir, tmp_path):
     import torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     profiles.save_speaker(profiles.create_speaker_profile("v0", "V0"))
     with pytest.raises(RuntimeError, match="CUDA"):
         identify.enroll("v0", voices[0][0])
-    with pytest.raises(NotImplementedError, match="transcript"):
-        identify.resolve_segments(None, "t.json", "S1")
-    assert identify.resolve_segments([(0.0, 1.0)], "t.json", "S1") == [(0.0, 1.0)]
+    transcript = tmp_path / "t.json"
+    transcript.write_text(json.dumps({"results": [
+        {"type": "word", "start_time": 0.5, "end_time": 1.5, "speaker": "S1",
+         "alternatives": [{"content": "hi"}]},
+        {"type": "word", "start_time": 1.5, "end_time": 2.0, "speaker": "S2",
+         "alternatives": [{"content": "yo"}]}]}))
+    assert identify.resolve_segments(None, transcript, "S1") == [(0.5, 1.5)]
+    assert identify.resolve_segments(None, transcript, "S1") == \
+        jident.resolve_segments(None, transcript, "S1")
+    assert identify.resolve_segments([(0.0, 1.0)], transcript, "S1") == [(0.0, 1.0)]
 
 
 # -- the detection CLI on the CPU --------------------------------------------
