@@ -64,6 +64,23 @@ any failure raises and exits non-zero:
              assigned, ``transcribe_local`` and ``speaker_assign`` in every
              recording's steps, the log-mel kernel launched; seconds per
              recording, audio-s per s, labels mapped to enrolled voices;
+17. train-step — one training step of ECAPA c512 (bf16, warm-started from
+             the fam5tel file, a seeded AAM head over 5 families x 64
+             speakers) on one synthesized batch of 32 crops of 1.5 s, on the
+             card and on the CPU from the same state: loss within 5 %
+             relative, every updated tensor at cosine >= 0.999; then 20
+             steps on that batch (the loss must fall), step time by CUDA
+             events and by the profiler, peak memory, and the device-only
+             rate at batch 256;
+18. train — ``training.train`` with the fam5tel recipe (aug and noise at
+             0.5), warm-started from the bundled file: 8 steps with a
+             checkpoint every 4, then 2 more in a second call that restores
+             step 8; K1 launched once a step (10), per-step host synthesis,
+             queue wait, device step time and the device's idle share; the
+             saved file loads in ``GpuBackend`` and separates 8 unseen family
+             voices (genuine-pair mean cosine above the impostor mean);
+19. train-xvector — 2 steps of the full-width x-vector from scratch; the
+             file loads through ``SDTK_BACKEND_TOWER=xvector``;
 
 The kernel phase holds all four kernels (log-mel from the waveform, the
 cosine scores, the fused identify top-k, log-mel from frames) at the
@@ -77,8 +94,8 @@ took 0.3470 ms on the device at (64, 100 000, 192) f32 (same card;
 PERF.md).  The cosine kernel does too; its CUDA-core predecessor took
 0.0234 ms on the device at (29, 8 192, 192) (same card; PERF.md).  Then
 the ``kernels`` line (each kernel's launches on its main path, and on
-every path driven, ``launches_by_path``), the card's name and power limit
-as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.
+every path driven, ``launches_by_path``, ``train`` among them), the card's
+name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -1090,6 +1107,272 @@ def phase_process(work: Path, device: str) -> dict:
     return launches
 
 
+# Training (the trainer's recipe: ECAPA c512 bf16 warm-started from the bundled
+# fam5tel file, 5 families x 64 speakers, 32 crops of 1.5 s from 3 s voices).
+FAM5TEL = ROOT / "models" / "ecapatdnn-fam5tel.msgpack"
+TRAIN_RECIPE = {"families": "0,1,2,3,4", "n_speakers": 64, "batch": 32, "seconds": 3.0,
+                "crop_seconds": 1.5, "aug_prob": 0.5, "noise_prob": 0.5}
+# The card's step against the CPU's from one state and batch, both bf16 (the
+# trainer's dtype): cuDNN and oneDNN sum in other orders, so the loss may move
+# by bf16 rounding of the embeddings (~0.4 % an element); 5 % leaves room.
+TRAIN_LOSS_RTOL = 0.05
+TRAIN_PARAM_COS = 0.999  # each updated tensor against the CPU's
+# Softmax over time is unchanged by a per-channel shift of its logits, so the
+# gradient of attention's second bias is zero in exact arithmetic and rounding
+# noise on either device; AdamW's normalized step moves it by up to lr (1e-3)
+# with a sign neither determines.  It is held to that bound instead.
+ZERO_GRAD_PARAM = "asp.att2.bias"
+
+
+def _cos(a, b) -> float:
+    import torch
+
+    a, b = a.detach().double().flatten().cpu(), b.detach().double().flatten().cpu()
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+
+def phase_train_step(device):
+    """One training step of the full-width ECAPA on the card against the
+    same step on the CPU (K1's plain version, CPU convolutions) from one
+    state (the fam5tel file plus a seeded AAM head over 320 classes) and
+    one synthesized batch; then 20 steps on that batch on the card (the
+    loss must fall), their device time by CUDA events and by the profiler,
+    and the peak memory; then the device-only rate at batch 256 (the batch
+    repeated 8 times)."""
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch.data.batches import BatchSpec, make_batch
+    from sdtk_tpu_torch.models.ecapa import EcapaConfig, EcapaTdnn
+    from sdtk_tpu_torch.ops.fbank import FrontendConfig
+    from sdtk_tpu_torch.ops.fbank_wave import log_mel_wave
+    from sdtk_tpu_torch.parallel.train import TrainConfig, create_train_state, train_step
+    from sdtk_tpu_torch.training import warm_start
+
+    fams = tuple(int(f) for f in TRAIN_RECIPE["families"].split(","))
+    spec = BatchSpec(family_ids=fams, **{k: v for k, v in TRAIN_RECIPE.items() if k != "families"})
+    t0 = time.perf_counter()
+    wavs, cls = make_batch(np.random.default_rng(0), spec)
+    synth_s = time.perf_counter() - t0
+    cfg = TrainConfig(n_classes=spec.n_classes)
+    fcfg = FrontendConfig()
+
+    def fresh(dev):
+        state = create_train_state(EcapaTdnn(EcapaConfig()), torch.Generator().manual_seed(0),
+                                   cfg, dev)
+        warm_start(state, "ecapa", FAM5TEL)
+        return state
+
+    def step(state, dev, w=wavs, c=cls):
+        with torch.no_grad():
+            feats, mask = log_mel_wave(torch.from_numpy(w).to(dev), fcfg)
+        return train_step(state, feats, mask, torch.from_numpy(c).to(dev), cfg)
+
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        state = fresh(dev)
+        t0 = time.perf_counter()
+        m = step(state, dev)
+        loss = float(m["loss"])
+        names = [n for n, _ in state.model.named_parameters()] + ["aam_weights"]
+        params = [*state.model.parameters(), state.aam_weights]
+        runs.append({"loss": loss, "seconds": time.perf_counter() - t0, "state": state,
+                     "params": dict(zip(names, [p.detach().cpu() for p in params])),
+                     "grads": torch.cat([p.grad.detach().double().flatten().cpu()
+                                         for p in params])})
+    gpu, cpu = runs
+    param_cos = {n: _cos(gpu["params"][n], cpu["params"][n]) for n in gpu["params"]}
+    worst = min((n for n in param_cos if n != ZERO_GRAD_PARAM), key=param_cos.get)
+    zero_grad_diff = float((gpu["params"][ZERO_GRAD_PARAM]
+                            - cpu["params"][ZERO_GRAD_PARAM]).abs().max())
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    row = {"phase": "train-step", "classes": spec.n_classes, "batch": spec.batch,
+           "crop_seconds": spec.crop_seconds, "synth_seconds": synth_s,
+           "loss_cuda": gpu["loss"], "loss_cpu": cpu["loss"], "loss_rel_diff": loss_rel,
+           "loss_bar": TRAIN_LOSS_RTOL, "min_param_cos": param_cos[worst], "min_param": worst,
+           "param_cos_bar": TRAIN_PARAM_COS, "grad_cos_all": _cos(gpu["grads"], cpu["grads"]),
+           "zero_grad_param": ZERO_GRAD_PARAM, "zero_grad_param_cos": param_cos[ZERO_GRAD_PARAM],
+           "zero_grad_param_max_abs_diff": zero_grad_diff,
+           "cpu_step_seconds": cpu["seconds"]}
+    del runs, cpu
+
+    # 20 steps on the one batch, on the card
+    state = gpu["state"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(20):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        m = step(state, device)
+        b.record()
+        losses.append(m["loss"])
+        step_ms.append((a, b))
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    step_ms = [a.elapsed_time(b) for a, b in step_ms]
+    busy = device_ms(lambda: step(state, device), "", reps=3)  # "" matches every kernel
+    t0 = time.perf_counter()
+    step(state, device)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    median_ms = statistics.median(step_ms[5:])
+    row.update({
+        "losses_20": losses, "first5_mean": statistics.mean(losses[:5]),
+        "last5_mean": statistics.mean(losses[-5:]),
+        "step_ms_median": median_ms, "step_ms": step_ms,
+        "step_device_busy_ms": busy, "step_host_ms_synced": host_ms,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "audio_s_per_s_batch": spec.batch * spec.crop_seconds / (median_ms / 1e3)})
+
+    # device-only rate at batch 256: the batch repeated, labels with it
+    w256, c256 = np.tile(wavs, (8, 1)), np.tile(cls, 8)
+    ms256 = cuda_ms(lambda: step(state, device, w256, c256), reps=10, warmup=3)
+    row.update({"step_ms_b256": ms256,
+                "audio_s_per_s_b256": 256 * spec.crop_seconds / (ms256 / 1e3),
+                "peak_memory_bytes_b256": torch.cuda.max_memory_allocated()})
+    emit(row)
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train-step: card loss {gpu['loss']} vs CPU {row['loss_cpu']}")
+    if not param_cos[worst] >= TRAIN_PARAM_COS:
+        raise AssertionError(f"train-step: {worst} at cosine {param_cos[worst]} with the CPU's")
+    if not zero_grad_diff <= 2 * cfg.learning_rate * 1.001:
+        raise AssertionError(f"train-step: {ZERO_GRAD_PARAM} moved {zero_grad_diff} apart")
+    if not row["last5_mean"] < row["first5_mean"]:
+        raise AssertionError(f"train-step: the loss did not fall on a fixed batch: {losses}")
+    return busy
+
+
+def _train_report(phase: str, state, logs: list[str], wall: float, busy_ms) -> dict:
+    """Per-step times of a ``train()`` call and the device's idle share of
+    its loop: by the steps' CUDA-event spans (which hold the device's waits
+    for the host's launches inside a step, so this share is a lower bound),
+    and by kernel time (``busy_ms``, the profiler's time of one step at the
+    same shapes, times the steps)."""
+    steps = state.timings["steps"]
+    loop_s = state.timings["loop_s"]
+    span_s = sum(t["step_ms"] for t in steps) / 1e3
+    kernels = (1.0 - len(steps) * busy_ms / 1e3 / loop_s if isinstance(busy_ms, float)
+               else "not measured")
+    return {"phase": phase, "steps": len(steps), "wall_seconds": wall, "loop_seconds": loop_s,
+            "synth_s": [t["synth_s"] for t in steps], "wait_s": [t["wait_s"] for t in steps],
+            "step_ms": [t["step_ms"] for t in steps], "loss": [t["loss"] for t in steps],
+            "device_idle_share_by_step_spans": 1.0 - span_s / loop_s,
+            "device_idle_share_by_kernel_time": kernels, "step_kernel_ms": busy_ms,
+            "log": [m for m in logs if not m.startswith("step ")]}
+
+
+def phase_train(work: Path, step_kernel_ms) -> dict:
+    """``training.train`` on the card with the fam5tel recipe, warm-started
+    from the bundled file, 8 steps with a checkpoint every 4, then a second
+    call of 2 steps on the same checkpoint directory (crash resume from
+    step 8).  ``step_kernel_ms`` is a step's kernel time from the
+    train-step phase.  K1 must launch once a step; the saved file must load in
+    ``GpuBackend`` and separate 8 unseen family voices (genuine-pair mean
+    cosine above the impostor mean).  Returns the path's launch counts."""
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch import training
+    from sdtk_tpu_torch.backends.gpu import GpuBackend
+    from sdtk_tpu_torch.data.synth_families import family_utterance
+    from sdtk_tpu_torch.utils.checkpoint import read_msgpack
+
+    tree = read_msgpack(FAM5TEL)
+    n_leaves = sum(1 for col in ("params", "batch_stats") for _ in _leaf_iter(tree[col]))
+    ck = work / "train-ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    kw = {**TRAIN_RECIPE, "model_name": "ecapa", "resume_path": FAM5TEL, "ckpt_dir": ck,
+          "ckpt_every": 4, "log_every": 1, "device": "cuda"}
+    wrappers = reset_launches()
+    rows, outs = [], []
+    for steps, name in ((8, "train"), (2, "train-resume")):
+        logs: list[str] = []
+        t0 = time.perf_counter()
+        state, out = training.train(steps=steps, out_path=work / f"{name}.msgpack",
+                                    log=logs.append, **kw)
+        torch.cuda.synchronize()
+        rows.append(_train_report(name, state, logs, time.perf_counter() - t0, step_kernel_ms))
+        outs.append(out)
+    launches = read_launches(wrappers)
+
+    be = GpuBackend(model="ecapa", params_path=outs[-1], device="cuda")
+    voices = [(i % 5, 500_000 + i) for i in range(8)]
+    emb = np.stack([be.embed_waveform(family_utterance(f, s, u, 3.0))
+                    for f, s in voices for u in (1, 2)])
+    emb = emb / np.linalg.norm(emb, axis=1, keepdims=True)
+    sims = emb @ emb.T
+    spk = np.repeat(np.arange(8), 2)
+    upper = np.triu(np.ones_like(sims, dtype=bool), 1)
+    genuine = float(sims[upper & (spk[:, None] == spk[None, :])].mean())
+    impostor = float(sims[upper & (spk[:, None] != spk[None, :])].mean())
+    for row in rows:
+        emit(row)
+    emit({"phase": "train-check", "launches": launches, "steps_taken": 10,
+          "expected_resume_leaves": n_leaves, "params_source": be.engine.params_source,
+          "embedding_dim": int(emb.shape[1]), "genuine_mean_cos": genuine,
+          "impostor_mean_cos": impostor})
+    resumed = f"({n_leaves} leaves, 0 skipped)"
+    if not all(any(m.startswith("resumed backbone") and resumed in m for m in r["log"])
+               for r in rows):
+        raise AssertionError(f"train: resume did not merge {resumed}: {rows[0]['log']}")
+    if not any("restored full train state" in m and "(step 8)" in m for m in rows[1]["log"]):
+        raise AssertionError(f"train: the second call did not restore step 8: {rows[1]['log']}")
+    if launches["log_mel_wave"] != 10 or any(v for k, v in launches.items() if k != "log_mel_wave"):
+        raise AssertionError(f"train: launches {launches}, expected log_mel_wave 10 and no other")
+    if be.engine.params_source != str(outs[-1]) or not np.isfinite(emb).all() \
+            or emb.shape[1] != 192:
+        raise AssertionError("train: the saved file did not load into GpuBackend")
+    if not genuine > impostor:
+        raise AssertionError(f"train: genuine {genuine} <= impostor {impostor}")
+    return launches
+
+
+def _leaf_iter(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaf_iter(v)
+        else:
+            yield v
+
+
+def phase_train_xvector(work: Path) -> dict:
+    """Two steps of the full-width x-vector from scratch (the recipe's
+    batch); the file it writes loads through ``SDTK_BACKEND_TOWER=xvector``
+    with ``SDTK_MODEL_PATH`` and embeds to finite 512-d vectors.  Returns
+    the path's launch counts."""
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch import training
+    from sdtk_tpu_torch.backends.base import get_backend
+    from sdtk_tpu_torch.data.synth_families import family_utterance
+
+    wrappers = reset_launches()
+    logs: list[str] = []
+    t0 = time.perf_counter()
+    state, out = training.train(steps=2, model_name="xvector",
+                                out_path=work / "train-xvector.msgpack", log=logs.append,
+                                log_every=1, device="cuda", **TRAIN_RECIPE)
+    torch.cuda.synchronize()
+    row = _train_report("train-xvector", state, logs, time.perf_counter() - t0, "not measured")
+    launches = read_launches(wrappers)
+    os.environ["SDTK_MODEL_PATH"] = str(out)
+    try:
+        with tower("xvector"):
+            be = get_backend("gpu", device="cuda")
+            emb = be.embed_waveform(family_utterance(1, 3, 5, 3.0))
+            source = be.engine.params_source
+    finally:
+        os.environ.pop("SDTK_MODEL_PATH", None)
+    emit({**row, "launches": launches, "params_source": source, "embedding_dim": int(emb.shape[0])})
+    if source != str(out) or emb.shape != (512,) or not np.isfinite(emb).all():
+        raise AssertionError(f"train-xvector: {source} gave {emb.shape}")
+    if launches["log_mel_wave"] != 2:
+        raise AssertionError(f"train-xvector: launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "sdtk_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1195,6 +1478,9 @@ def main() -> int:
     path_launches["embed-cluster"] = phase_embed_cluster(diarizer.backend.engine)
     path_launches["assign"] = phase_assign(out_dir, "cuda")
     path_launches["process"] = phase_process(out_dir, "cuda")
+    step_kernel_ms = phase_train_step(device)
+    path_launches["train"] = phase_train(out_dir, step_kernel_ms)
+    path_launches["train-xvector"] = phase_train_xvector(out_dir)
 
     for row in kernel_rows:
         if row["path"] is not None:

@@ -1,4 +1,4 @@
-"""ECAPA-TDNN speaker embedder in PyTorch (inference).
+"""ECAPA-TDNN speaker embedder in PyTorch (inference and training).
 
 The counterpart of ``sdtk_tpu/models/ecapa.py`` (flax), with the same
 module names, so the JAX package's checkpoints load through
@@ -13,7 +13,9 @@ statistic in float32, then cast back.  Padded frames are re-zeroed after
 every TdnnBlock and every Res2 branch, SE pools with a masked mean,
 attentive pooling masks its logits with −1e9 before an f32 softmax, so
 rows with no valid frame stay finite.  Parameters are held in float32 and
-cast to the compute dtype where they are used.
+cast to the compute dtype where they are used, so autograd returns float32
+gradients.  Under ``module.train()`` BatchNorm normalizes with batch
+statistics as flax's ``nn.BatchNorm(use_running_average=False)`` does.
 """
 
 from __future__ import annotations
@@ -71,7 +73,17 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 in float32 (flax: ε = 1e-5)."""
+    """BatchNorm over dim 1 in float32, as flax 0.12's ``nn.BatchNorm``
+    (ε = 1e-5, momentum 0.99, ``use_fast_variance``).
+
+    In eval mode it normalizes with the running statistics.  In train mode
+    it takes the batch mean and the *biased* variance E[x²] − E[x]² over
+    every axis but the channels (padded frames included, as the JAX tower
+    does), normalizes with them, and moves the running statistics by
+    r ← 0.99·r + 0.01·batch.  ``F.batch_norm(training=True)`` would update
+    with momentum 0.1 and the unbiased variance instead."""
+
+    momentum = 0.99
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -82,8 +94,20 @@ class BatchNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x.float(), self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        x = x.float()
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        dims = [0, *range(2, x.dim())]
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 def _masked_mean_std(x: torch.Tensor, m: torch.Tensor, eps: float = 1e-5
@@ -96,14 +120,20 @@ def _masked_mean_std(x: torch.Tensor, m: torch.Tensor, eps: float = 1e-5
     return mean, torch.sqrt(torch.clamp(var, min=eps))
 
 
+# standard deviation of a unit normal truncated to (-2, 2)
+_TRUNC_STD = 0.87962566103423978
+
+
 def random_init(model: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator``: N(0, 1/fan_in) kernels, zero
-    biases, identity BatchNorm (for runs without a checkpoint)."""
+    """Random weights from ``generator`` with flax's default law: kernels
+    from ``lecun_normal`` (a unit normal truncated to (−2, 2), scaled to
+    variance 1/fan_in), zero biases, identity BatchNorm."""
     for mod in model.modules():
         if isinstance(mod, (Conv, Dense)):
             w = mod.weight
             with torch.no_grad():
-                w.copy_(torch.randn(w.shape, generator=generator) / w[0].numel() ** 0.5)
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+                w.mul_(1.0 / (w[0].numel() ** 0.5 * _TRUNC_STD))
                 mod.bias.zero_()
 
 

@@ -1,4 +1,4 @@
-"""x-vector TDNN speaker embedder in PyTorch (inference).
+"""x-vector TDNN speaker embedder in PyTorch (inference and training).
 
 The counterpart of ``sdtk_tpu/models/xvector.py`` (flax), with the same
 module names, so the JAX package's checkpoints (the bundled
@@ -8,7 +8,8 @@ with (kernel, dilation) (5, 1) (3, 2) (3, 3) (1, 1) (1, 1), the last one
 ``pre_pool_channels`` wide → masked mean/std pooling in float32 →
 ``segment6``, a dense layer run in float32 whatever the compute dtype,
 as the JAX module sets it.  The blocks are ECAPA's ``TdnnBlock``, which
-re-zeroes padded frames after every block as the JAX one does.
+re-zeroes padded frames after every block as the JAX one does; under
+``module.train()`` their BatchNorm takes batch statistics.
 """
 
 from __future__ import annotations

@@ -7,7 +7,11 @@ array, type 2 a Python complex.  Leaves above 1 GiB are split into a
 ``{"__msgpack_chunked_array__": True, "shape": ..., "chunks": ...}``
 map.  :func:`read_msgpack` decodes all of that with plain ``msgpack``
 into nested dicts of numpy arrays — the same tree as
-``flax.serialization.msgpack_restore``.
+``flax.serialization.msgpack_restore``; :func:`write_msgpack` is its
+inverse and writes the bytes ``flax.serialization.msgpack_serialize``
+writes.  The converters carry a tower's weights both ways: flax
+variables → the port's state dict (``ecapa_state_dict``), and back
+(``ecapa_jax_tree``).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from pathlib import Path
 import msgpack
 import numpy as np
 import torch
+
+from .ioutil import atomic_write_bytes
 
 _EXT_NDARRAY = 1
 _EXT_COMPLEX = 2
@@ -59,6 +65,37 @@ def read_msgpack(path: str | Path) -> dict:
     with open(path, "rb") as f:
         tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
     return _unchunk(tree)
+
+
+_MAX_LEAF_BYTES = 2**30  # flax splits larger leaves into chunks; no tower has one
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")), use_bin_type=True)
+
+
+def _ext_pack(obj):
+    if isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject or obj.nbytes > _MAX_LEAF_BYTES:
+            raise ValueError(f"cannot write a {obj.dtype} leaf of {obj.nbytes} bytes")
+        return msgpack.ExtType(_EXT_NDARRAY, _ndarray_bytes(obj))
+    if isinstance(obj, np.generic):
+        return msgpack.ExtType(_EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj)))
+    if isinstance(obj, complex):
+        return msgpack.ExtType(_EXT_COMPLEX, msgpack.packb((obj.real, obj.imag)))
+    raise TypeError(f"cannot serialize {type(obj).__name__}")
+
+
+def msgpack_bytes(tree: dict) -> bytes:
+    """Nested dicts of numpy arrays → flax msgpack bytes (maps in the
+    dicts' own key order)."""
+    return msgpack.packb(tree, default=_ext_pack, strict_types=True)
+
+
+def write_msgpack(path: str | Path, tree: dict) -> None:
+    """Write ``tree`` as a flax msgpack checkpoint, atomically (a temp file
+    in the same directory, then ``os.replace``)."""
+    atomic_write_bytes(path, msgpack_bytes(tree))
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -108,3 +145,50 @@ def xvector_state_dict(jax_tree: dict) -> dict[str, torch.Tensor]:
     ``mean``/``var`` on each block, ``segment6.kernel`` (3000, 512) →
     (512, 3000)."""
     return ecapa_state_dict(jax_tree)
+
+
+def _nest(flat: dict[str, np.ndarray]) -> dict:
+    """``{"a.b.c": x}`` → ``{"a": {"b": {"c": x}}}`` with every level's keys
+    sorted, the order in which JAX's tree functions rebuild a dict."""
+    tree: dict = {}
+    for key in sorted(flat):
+        *mods, leaf = key.split(".")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = flat[key]
+
+    def order(node):
+        return {k: order(node[k]) for k in sorted(node)} if isinstance(node, dict) else node
+
+    return order(tree)
+
+
+def ecapa_jax_tree(state_dict: dict[str, torch.Tensor]) -> dict:
+    """The port's ``EcapaTdnn.state_dict()`` → JAX ECAPA variables
+    ``{"params": ..., "batch_stats": ...}`` (float32 numpy leaves), the
+    inverse of :func:`ecapa_state_dict`: Conv weights ``(out, in, k)`` →
+    kernels ``(k, in, out)``, Dense ``(out, in)`` → ``(in, out)``,
+    BatchNorm ``weight`` → ``scale`` and its running statistics →
+    ``batch_stats`` ``mean``/``var``."""
+    bn_mods = {k.rpartition(".")[0] for k in state_dict if k.endswith(".running_mean")}
+    params: dict[str, np.ndarray] = {}
+    stats: dict[str, np.ndarray] = {}
+    for key, t in state_dict.items():
+        mod, _, leaf = key.rpartition(".")
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if leaf in ("running_mean", "running_var"):
+            stats[f"{mod}.{leaf[len('running_'):]}"] = np.ascontiguousarray(a)
+            continue
+        if leaf == "weight" and mod in bn_mods:
+            leaf = "scale"
+        elif leaf == "weight":
+            a, leaf = (a.transpose(2, 1, 0) if a.ndim == 3 else a.T), "kernel"
+        params[f"{mod}.{leaf}"] = np.ascontiguousarray(a)
+    return {"params": _nest(params), "batch_stats": _nest(stats)}
+
+
+def xvector_jax_tree(state_dict: dict[str, torch.Tensor]) -> dict:
+    """The port's ``XVector.state_dict()`` → JAX x-vector variables, the
+    inverse of :func:`xvector_state_dict` (ECAPA's conversion)."""
+    return ecapa_jax_tree(state_dict)

@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from sdtk_tpu_torch.models.ecapa import EcapaConfig, EcapaTdnn
-from sdtk_tpu_torch.utils.checkpoint import ecapa_state_dict, read_msgpack
+from sdtk_tpu_torch.utils.checkpoint import (ecapa_jax_tree, ecapa_state_dict, msgpack_bytes,
+                                             read_msgpack, write_msgpack, xvector_jax_tree,
+                                             xvector_state_dict)
 
 REPO = Path(__file__).resolve().parent.parent
 MODELS = REPO / "models"
@@ -31,10 +33,11 @@ def _leaves(tree, prefix=""):
 
 
 def test_port_imports_without_jax_or_sdtk_tpu():
-    """Every module of the port imports with jax and flax blocked, and
-    none of them pulls in sdtk_tpu."""
+    """Every module of the port imports with jax, flax, optax and orbax
+    blocked, and none of them pulls in sdtk_tpu."""
     code = (
-        "import sys; sys.modules['jax'] = None; sys.modules['flax'] = None\n"
+        "import sys\n"
+        "for m in ('jax', 'flax', 'optax', 'orbax', 'orbax.checkpoint'): sys.modules[m] = None\n"
         "import importlib, pkgutil, sdtk_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(sdtk_tpu_torch.__path__, 'sdtk_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
@@ -50,7 +53,11 @@ def test_port_imports_without_jax_or_sdtk_tpu():
         "          'sdtk_tpu_torch.store.queue', 'sdtk_tpu_torch.backends.fake',\n"
         "          'sdtk_tpu_torch.pipeline.llm', 'sdtk_tpu_torch.pipeline.assign',\n"
         "          'sdtk_tpu_torch.pipeline.process', 'sdtk_tpu_torch.cli.assign',\n"
-        "          'sdtk_tpu_torch.cli.process'):\n"
+        "          'sdtk_tpu_torch.cli.process', 'sdtk_tpu_torch.data.synth_families',\n"
+        "          'sdtk_tpu_torch.data.augment', 'sdtk_tpu_torch.data.nonspeech',\n"
+        "          'sdtk_tpu_torch.data.batches', 'sdtk_tpu_torch.parallel.train',\n"
+        "          'sdtk_tpu_torch.parallel.checkpoint', 'sdtk_tpu_torch.parallel.mesh',\n"
+        "          'sdtk_tpu_torch.training', 'sdtk_tpu_torch.__main__'):\n"
         "    assert m in mods, m\n"
         "assert 'yaml' not in sys.modules\n"
         "print(len(mods))\n"
@@ -58,7 +65,7 @@ def test_port_imports_without_jax_or_sdtk_tpu():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 52
+    assert int(res.stdout.strip()) >= 62
 
 
 def test_chip_smoke_imports_no_jax():
@@ -118,3 +125,30 @@ def test_converter_layouts_fam5tel():
     np.testing.assert_array_equal(sd["stem.bn.running_var"].numpy(), bs["stem"]["bn"]["var"])
     np.testing.assert_array_equal(sd["asp_bn.weight"].numpy(), p["asp_bn"]["scale"])
     assert all(t.dtype == torch.float32 for t in sd.values())
+
+
+@pytest.mark.parametrize("name,to_sd,to_tree", [
+    ("ecapatdnn-fam5tel.msgpack", ecapa_state_dict, ecapa_jax_tree),
+    ("xvector.msgpack", xvector_state_dict, xvector_jax_tree),
+], ids=["ecapa", "xvector"])
+def test_converters_round_trip_to_flax_bytes(tmp_path, name, to_sd, to_tree):
+    """flax variables → state dict → flax variables, written by
+    ``write_msgpack``: the bundled file's bytes exactly, and what flax
+    writes for the same tree."""
+    path = MODELS / name
+    raw = path.read_bytes()
+    tree = to_tree(to_sd(read_msgpack(path)))
+    assert msgpack_bytes(tree) == raw
+    assert flax.serialization.to_bytes(flax.serialization.msgpack_restore(raw)) == raw
+    write_msgpack(tmp_path / "out" / name, tree)
+    assert (tmp_path / "out" / name).read_bytes() == raw
+    assert not [p for p in (tmp_path / "out").iterdir() if p.name != name]
+
+
+def test_writer_scalars_and_limits():
+    """numpy scalars and complex numbers pack as flax packs them; an object
+    array is refused."""
+    tree = {"s": np.float32(2.5), "i": np.arange(3, dtype=np.int32), "c": complex(1.0, -2.0)}
+    assert msgpack_bytes(tree) == flax.serialization.msgpack_serialize(tree, in_place=True)
+    with pytest.raises(ValueError):
+        msgpack_bytes({"o": np.array([object()])})

@@ -203,3 +203,42 @@ def test_log_mel_kernels_raise_outside_their_range(cuda):
     with pytest.raises(ValueError, match="n_fft 1024"):
         fbank_frames.fbank_frames(x[:, :400].contiguous(),
                                   fbank.FrontendConfig(compute_dtype="float32", n_fft=1024))
+
+
+# One training step on the card (K1 featurizes, cuDNN convolutions without
+# TF32) against the same step on the CPU (K1's plain version) from one state
+# and batch.  f32: loss within 1e-4 relative, all gradients together at
+# cosine >= 0.9999.  bf16 (the trainer's dtype): 5e-2 and 0.999.  All
+# updated parameters together at cosine >= 0.9999 with the CPU's (one tensor
+# alone can fall lower: a zero-initialized bias moves by ±lr, the sign of a
+# gradient that may be rounding noise).
+@pytest.mark.parametrize("dtype,loss_rtol,grad_cos", [("float32", 1e-4, 0.9999),
+                                                      ("bfloat16", 5e-2, 0.999)])
+def test_train_step_on_card_matches_cpu(cuda, dtype, loss_rtol, grad_cos):
+    from sdtk_tpu_torch.data.batches import BatchSpec, make_batch
+    from sdtk_tpu_torch.models.ecapa import EcapaConfig, EcapaTdnn
+    from sdtk_tpu_torch.parallel.train import TrainConfig, create_train_state, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    spec = BatchSpec(family_ids=(0, 1, 2), n_speakers=8, batch=16, seconds=1.5, crop_seconds=1.0,
+                     aug_prob=0.5, noise_prob=0.5)
+    wavs, cls = make_batch(np.random.default_rng(0), spec)
+    cfg = TrainConfig(n_classes=spec.n_classes)
+    fcfg = fbank.FrontendConfig(compute_dtype=dtype)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        state = create_train_state(EcapaTdnn(EcapaConfig(channels=64, dtype=dtype)),
+                                   torch.Generator().manual_seed(0), cfg, dev)
+        before = fbank_wave.log_mel_wave.launches
+        with torch.no_grad():
+            feats, mask = fbank_wave.log_mel_wave(torch.from_numpy(wavs).to(dev), fcfg)
+        m = train_step(state, feats, mask, torch.from_numpy(cls).to(dev), cfg)
+        assert fbank_wave.log_mel_wave.launches == before + (dev.type == "cuda")
+        params = [*state.model.parameters(), state.aam_weights]
+        runs[dev.type] = (float(m["loss"]), [p.detach().cpu().double() for p in params],
+                          torch.cat([p.grad.detach().cpu().double().flatten() for p in params]))
+    (loss_g, p_g, g_g), (loss_c, p_c, g_c) = runs["cuda"], runs["cpu"]
+    assert abs(loss_g - loss_c) <= loss_rtol * abs(loss_c)
+    assert float(torch.nn.functional.cosine_similarity(g_g, g_c, dim=0)) >= grad_cos
+    flat_g, flat_c = torch.cat([a.flatten() for a in p_g]), torch.cat([b.flatten() for b in p_c])
+    assert float(torch.nn.functional.cosine_similarity(flat_g, flat_c, dim=0)) >= 0.9999
