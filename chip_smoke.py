@@ -68,15 +68,20 @@ any failure raises and exits non-zero:
              the fam5tel file, a seeded AAM head over 5 families x 64
              speakers) on one synthesized batch of 32 crops of 1.5 s, on the
              card and on the CPU from the same state: loss within 5 %
-             relative, every updated tensor at cosine >= 0.999; then 20
-             steps on that batch (the loss must fall), step time by CUDA
-             events and by the profiler, peak memory, and the device-only
-             rate at batch 256;
+             relative, all gradients together at cosine >= 0.999, each
+             tensor's within twice bf16's rounding (the CPU's bf16 gradient
+             against its f32 one), every updated tensor at cosine >= 0.999;
+             then 20 steps on that batch (the loss must fall), step time by
+             CUDA events and by the profiler, peak memory; the step with the
+             producer idle and with a thread synthesizing batches beside it;
+             and the device-only rate at batch 256;
 18. train — ``training.train`` with the fam5tel recipe (aug and noise at
              0.5), warm-started from the bundled file: 8 steps with a
              checkpoint every 4, then 2 more in a second call that restores
              step 8; K1 launched once a step (10), per-step host synthesis,
-             queue wait, device step time and the device's idle share; the
+             queue wait, device step time, checkpoint seconds, and the
+             device's idle share of the first call's loop by its own
+             profile (``torch.profiler`` over the whole call); the
              saved file loads in ``GpuBackend`` and separates 8 unseen family
              voices (genuine-pair mean cosine above the impostor mean);
 19. train-xvector — 2 steps of the full-width x-vector from scratch; the
@@ -103,6 +108,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -159,6 +165,15 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
+def trace_device_us(prof, kernel: str = "") -> float:
+    """Device microseconds in a ``torch.profiler`` trace, of the kernels
+    whose name contains ``kernel`` ("" for every kernel and copy)."""
+    return sum(float(getattr(e, "self_device_time_total", 0.0)
+                     or getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()
+               if kernel in e.key and str(e.device_type).endswith("CUDA"))
+
+
 def device_ms(fn, kernel: str, reps: int = 20):
     """Mean device time of the CUDA kernel whose name contains ``kernel``
     over ``reps`` calls of ``fn`` (``torch.profiler``): the kernel alone,
@@ -175,10 +190,7 @@ def device_ms(fn, kernel: str, reps: int = 20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(float(getattr(e, "self_device_time_total", 0.0)
-                             or getattr(e, "self_cuda_time_total", 0.0))
-                       for e in prof.key_averages()
-                       if kernel in e.key and str(e.device_type).endswith("CUDA"))
+        total_us = trace_device_us(prof, kernel)
         if total_us > 0:
             return total_us / reps / 1e3
     return "not measured"
@@ -254,8 +266,9 @@ def phase_kernel(device) -> dict:
     (128 one-second windows), bf16 in both log scales and f32; in bf16 also
     at the identify path's chunk (32 three-second windows), at a small
     ragged shape (3 x 4000: 23 frames a row, less than one tile), at the
-    streaming path's chunk (16 windows of 1.5 s) and at the embed + cluster
-    batch (1024 three-second windows, 196 MB of f32 input)."""
+    streaming path's chunk (16 windows of 1.5 s), at the embed + cluster
+    batch (1024 three-second windows, 196 MB of f32 input) and at the
+    trainer's batches (32 crops of 1.5 s; 256 in train-step's rate)."""
     import torch
 
     from sdtk_tpu_torch.ops import fbank, fbank_wave
@@ -268,7 +281,8 @@ def phase_kernel(device) -> dict:
     }
     cases = [(name, (128, 16000)) for name in configs]
     cases += [("bf16-ln", (32, 48000)), ("bf16-db-fmin0", (32, 48000)), ("bf16-ln", (3, 4000)),
-              ("bf16-ln", (16, 24000)), ("bf16-ln", (1024, 48000))]
+              ("bf16-ln", (16, 24000)), ("bf16-ln", (1024, 48000)),
+              ("bf16-ln", (32, 24000)), ("bf16-ln", (256, 24000))]
     f32 = configs["f32-ln"]
     win = torch.from_numpy(fbank.melbank.window(f32.win_length, f32.window)).to(device)
     mel = torch.from_numpy(fbank.melbank.mel_filterbank(
@@ -313,11 +327,11 @@ def phase_kernel(device) -> dict:
                "tol": TOL[name], "ms": cuda_ms(kernel),
                "plain_ms": cuda_ms(lambda: fbank_wave.log_mel_wave_plain(x, cfg, coeff)),
                "library_ms": cuda_ms(library), **bound(nbytes, flops, cfg.compute_dtype)}
-        rows[name, b] = with_device_time(row, kernel, "log_mel_")
+        rows[name, b, n] = with_device_time(row, kernel, "log_mel_")
         emit({"phase": "kernel", "name": "log_mel_wave", "config": name,
-              "library": "torch.fft.rfft + mel matmul (f32)", **rows[name, b]})
+              "library": "torch.fft.rfft + mel matmul (f32)", **rows[name, b, n]})
     return summary("log_mel_wave", "log_mel_wave.cu", "sdtk_tpu/ops/research/fbank_wave.py:148",
-                   rows["bf16-ln", 128], "diarize")
+                   rows["bf16-ln", 128, 16000], "diarize")
 
 
 def _gauss(shape, seed: int, device, dtype=None):
@@ -1117,6 +1131,17 @@ TRAIN_RECIPE = {"families": "0,1,2,3,4", "n_speakers": 64, "batch": 32, "seconds
 # by bf16 rounding of the embeddings (~0.4 % an element); 5 % leaves room.
 TRAIN_LOSS_RTOL = 0.05
 TRAIN_PARAM_COS = 0.999  # each updated tensor against the CPU's
+# The gradients against the CPU's.  After AdamW's first step a parameter
+# moves by about lr whatever its gradient, so the parameters' cosine would
+# miss a wrong gradient; the gradients' would not.  All together: cosine
+# >= 0.999.  Each tensor: its distance from the CPU's bf16 gradient at most
+# twice bf16's own rounding there (the CPU's bf16 gradient's distance from
+# its f32 one).  A tensor whose gradient is mostly rounding (the bundled
+# checkpoint saturates attention's tanh, so softmax over time sees no
+# change of att1 or att2) has no direction to agree on; this bar still
+# holds it to rounding's size.
+TRAIN_GRAD_COS = 0.999
+TRAIN_GRAD_NOISE_FACTOR = 2.0
 # Softmax over time is unchanged by a per-channel shift of its logits, so the
 # gradient of attention's second bias is zero in exact arithmetic and rounding
 # noise on either device; AdamW's normalized step moves it by up to lr (1e-3)
@@ -1135,19 +1160,23 @@ def phase_train_step(device):
     """One training step of the full-width ECAPA on the card against the
     same step on the CPU (K1's plain version, CPU convolutions) from one
     state (the fam5tel file plus a seeded AAM head over 320 classes) and
-    one synthesized batch; then 20 steps on that batch on the card (the
+    one synthesized batch, both bf16, and the same step on the CPU in f32
+    for the size of bf16's rounding in each gradient; then 20 steps on that batch on the card (the
     loss must fall), their device time by CUDA events and by the profiler,
-    and the peak memory; then the device-only rate at batch 256 (the batch
-    repeated 8 times)."""
+    and the peak memory; then ``train()``'s step, 8 times with the producer
+    idle and 8 times with a thread synthesizing batches beside it; then the
+    device-only rate at batch 256 (the batch repeated 8 times).  Every step
+    is ``training.featurize_step``, the one ``train()`` takes."""
+    import threading
+
     import numpy as np
     import torch
 
     from sdtk_tpu_torch.data.batches import BatchSpec, make_batch
     from sdtk_tpu_torch.models.ecapa import EcapaConfig, EcapaTdnn
     from sdtk_tpu_torch.ops.fbank import FrontendConfig
-    from sdtk_tpu_torch.ops.fbank_wave import log_mel_wave
-    from sdtk_tpu_torch.parallel.train import TrainConfig, create_train_state, train_step
-    from sdtk_tpu_torch.training import warm_start
+    from sdtk_tpu_torch.parallel.train import TrainConfig, create_train_state
+    from sdtk_tpu_torch.training import featurize_step, warm_start
 
     fams = tuple(int(f) for f in TRAIN_RECIPE["families"].split(","))
     spec = BatchSpec(family_ids=fams, **{k: v for k, v in TRAIN_RECIPE.items() if k != "families"})
@@ -1157,32 +1186,44 @@ def phase_train_step(device):
     cfg = TrainConfig(n_classes=spec.n_classes)
     fcfg = FrontendConfig()
 
-    def fresh(dev):
-        state = create_train_state(EcapaTdnn(EcapaConfig()), torch.Generator().manual_seed(0),
-                                   cfg, dev)
+    def fresh(dev, dtype="bfloat16"):
+        state = create_train_state(EcapaTdnn(EcapaConfig(dtype=dtype)),
+                                   torch.Generator().manual_seed(0), cfg, dev)
         warm_start(state, "ecapa", FAM5TEL)
         return state
 
-    def step(state, dev, w=wavs, c=cls):
-        with torch.no_grad():
-            feats, mask = log_mel_wave(torch.from_numpy(w).to(dev), fcfg)
-        return train_step(state, feats, mask, torch.from_numpy(c).to(dev), cfg)
+    def step(state, dev, w=wavs, c=cls, fc=fcfg):
+        return featurize_step(state, w, c, cfg, fc, dev)
 
     runs = []
-    for dev in (device, torch.device("cpu")):
-        state = fresh(dev)
+    cpu_dev, f32 = torch.device("cpu"), FrontendConfig(compute_dtype="float32")
+    for dev, dtype, fc in ((device, "bfloat16", fcfg), (cpu_dev, "bfloat16", fcfg),
+                           (cpu_dev, "float32", f32)):
+        state = fresh(dev, dtype)
         t0 = time.perf_counter()
-        m = step(state, dev)
+        m = step(state, dev, fc=fc)
         loss = float(m["loss"])
         names = [n for n, _ in state.model.named_parameters()] + ["aam_weights"]
         params = [*state.model.parameters(), state.aam_weights]
         runs.append({"loss": loss, "seconds": time.perf_counter() - t0, "state": state,
                      "params": dict(zip(names, [p.detach().cpu() for p in params])),
-                     "grads": torch.cat([p.grad.detach().double().flatten().cpu()
-                                         for p in params])})
-    gpu, cpu = runs
+                     "grads": dict(zip(names, [p.grad.detach().cpu() for p in params]))})
+    gpu, cpu, ref = runs
     param_cos = {n: _cos(gpu["params"][n], cpu["params"][n]) for n in gpu["params"]}
     worst = min((n for n in param_cos if n != ZERO_GRAD_PARAM), key=param_cos.get)
+    # each tensor: the card's distance from the CPU's bf16 gradient over bf16's
+    # own (the CPU's bf16 gradient's distance from its f32 one)
+    dist = {n: float((gpu["grads"][n].double() - cpu["grads"][n].double()).norm())
+            for n in names}
+    noise = {n: float((cpu["grads"][n].double() - ref["grads"][n].double()).norm())
+             for n in names}
+    ratio = {n: dist[n] / noise[n] if noise[n] > 0 else (0.0 if dist[n] == 0 else math.inf)
+             for n in names}
+    worst_grad = max(ratio, key=ratio.get)
+    rounding_bound = [n for n in names
+                      if noise[n] >= float(ref["grads"][n].double().norm()) and noise[n] > 0]
+    grad_cos_all = _cos(torch.cat([g.flatten() for g in gpu["grads"].values()]),
+                        torch.cat([g.flatten() for g in cpu["grads"].values()]))
     zero_grad_diff = float((gpu["params"][ZERO_GRAD_PARAM]
                             - cpu["params"][ZERO_GRAD_PARAM]).abs().max())
     loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
@@ -1190,11 +1231,17 @@ def phase_train_step(device):
            "crop_seconds": spec.crop_seconds, "synth_seconds": synth_s,
            "loss_cuda": gpu["loss"], "loss_cpu": cpu["loss"], "loss_rel_diff": loss_rel,
            "loss_bar": TRAIN_LOSS_RTOL, "min_param_cos": param_cos[worst], "min_param": worst,
-           "param_cos_bar": TRAIN_PARAM_COS, "grad_cos_all": _cos(gpu["grads"], cpu["grads"]),
+           "param_cos_bar": TRAIN_PARAM_COS, "grad_cos_all": grad_cos_all,
+           "grad_cos_bar": TRAIN_GRAD_COS, "worst_grad": worst_grad,
+           "worst_grad_over_bf16_rounding": ratio[worst_grad],
+           "worst_grad_cos": _cos(gpu["grads"][worst_grad], cpu["grads"][worst_grad]),
+           "grad_rounding_bar": TRAIN_GRAD_NOISE_FACTOR,
+           "grads_mostly_rounding": rounding_bound,
+           "zero_grads": [n for n in names if float(ref["grads"][n].abs().max()) == 0.0],
            "zero_grad_param": ZERO_GRAD_PARAM, "zero_grad_param_cos": param_cos[ZERO_GRAD_PARAM],
            "zero_grad_param_max_abs_diff": zero_grad_diff,
-           "cpu_step_seconds": cpu["seconds"]}
-    del runs, cpu
+           "cpu_step_seconds": cpu["seconds"], "cpu_f32_step_seconds": ref["seconds"]}
+    del runs, cpu, ref
 
     # 20 steps on the one batch, on the card
     state = gpu["state"]
@@ -1225,6 +1272,44 @@ def phase_train_step(device):
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "audio_s_per_s_batch": spec.batch * spec.crop_seconds / (median_ms / 1e3)})
 
+    # train()'s step (log_every 20: no synchronize inside the loop) with the
+    # producer idle, then with a thread making batches beside it as train()'s
+    # producer does: does the synthesis slow the step's launches?
+    def steps8():
+        marks, t0 = [], time.perf_counter()
+        for _ in range(8):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            step(state, device)
+            b.record()
+            marks.append((a, b))
+        host_ms = (time.perf_counter() - t0) * 1e3 / 8
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in marks], host_ms
+
+    idle_spans, idle_host = steps8()
+    stop = threading.Event()
+    made = []
+
+    def producer():
+        r = np.random.default_rng(1)
+        while not stop.is_set():
+            made.append(make_batch(r, spec)[1].size)
+
+    worker = threading.Thread(target=producer, daemon=True)
+    worker.start()
+    time.sleep(0.1)
+    try:
+        busy_spans, busy_host = steps8()
+    finally:
+        stop.set()
+        worker.join()
+    row.update({"producer_idle_step_ms": idle_spans, "producer_idle_host_ms_per_step": idle_host,
+                "producer_busy_step_ms": busy_spans, "producer_busy_host_ms_per_step": busy_host,
+                "producer_busy_batches_made": len(made),
+                "producer_busy_slowdown": statistics.median(busy_spans)
+                / statistics.median(idle_spans)})
+
     # device-only rate at batch 256: the batch repeated, labels with it
     w256, c256 = np.tile(wavs, (8, 1)), np.tile(cls, 8)
     ms256 = cuda_ms(lambda: step(state, device, w256, c256), reps=10, warmup=3)
@@ -1234,42 +1319,68 @@ def phase_train_step(device):
     emit(row)
     if not loss_rel <= TRAIN_LOSS_RTOL:
         raise AssertionError(f"train-step: card loss {gpu['loss']} vs CPU {row['loss_cpu']}")
+    if not grad_cos_all >= TRAIN_GRAD_COS:
+        raise AssertionError(f"train-step: gradients at cosine {grad_cos_all} with the CPU's")
+    if not ratio[worst_grad] <= TRAIN_GRAD_NOISE_FACTOR:
+        raise AssertionError(f"train-step: {worst_grad}'s gradient {dist[worst_grad]} from the "
+                             f"CPU's, bf16 rounding there {noise[worst_grad]}")
     if not param_cos[worst] >= TRAIN_PARAM_COS:
         raise AssertionError(f"train-step: {worst} at cosine {param_cos[worst]} with the CPU's")
     if not zero_grad_diff <= 2 * cfg.learning_rate * 1.001:
         raise AssertionError(f"train-step: {ZERO_GRAD_PARAM} moved {zero_grad_diff} apart")
     if not row["last5_mean"] < row["first5_mean"]:
         raise AssertionError(f"train-step: the loss did not fall on a fixed batch: {losses}")
-    return busy
 
 
 def _train_report(phase: str, state, logs: list[str], wall: float, busy_ms) -> dict:
     """Per-step times of a ``train()`` call and the device's idle share of
     its loop: by the steps' CUDA-event spans (which hold the device's waits
     for the host's launches inside a step, so this share is a lower bound),
-    and by kernel time (``busy_ms``, the profiler's time of one step at the
-    same shapes, times the steps)."""
+    and by the device time of the call's own profile (``busy_ms``, every
+    kernel and copy of the whole call, warm start and save included, so
+    this share is a lower bound too), over the loop's wall time with and
+    without its checkpoint writes."""
     steps = state.timings["steps"]
     loop_s = state.timings["loop_s"]
+    ckpt_s = state.timings["ckpt_s"]
     span_s = sum(t["step_ms"] for t in steps) / 1e3
-    kernels = (1.0 - len(steps) * busy_ms / 1e3 / loop_s if isinstance(busy_ms, float)
-               else "not measured")
+    measured = isinstance(busy_ms, float)
     return {"phase": phase, "steps": len(steps), "wall_seconds": wall, "loop_seconds": loop_s,
+            "ckpt_seconds": ckpt_s, "loop_seconds_without_ckpt": loop_s - ckpt_s,
             "synth_s": [t["synth_s"] for t in steps], "wait_s": [t["wait_s"] for t in steps],
             "step_ms": [t["step_ms"] for t in steps], "loss": [t["loss"] for t in steps],
             "device_idle_share_by_step_spans": 1.0 - span_s / loop_s,
-            "device_idle_share_by_kernel_time": kernels, "step_kernel_ms": busy_ms,
+            "device_busy_ms_profiled": busy_ms,
+            "device_idle_share_by_profile": (1.0 - busy_ms / 1e3 / loop_s if measured
+                                             else "not measured"),
+            "device_idle_share_by_profile_without_ckpt": (
+                1.0 - busy_ms / 1e3 / (loop_s - ckpt_s) if measured else "not measured"),
             "log": [m for m in logs if not m.startswith("step ")]}
 
 
-def phase_train(work: Path, step_kernel_ms) -> dict:
+def _profiled_device_ms(fn):
+    """``fn()``'s result and the device time of every kernel and copy it
+    ran (``torch.profiler``), or "not measured" where the trace shows
+    none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    total_us = trace_device_us(prof)
+    return out, (total_us / 1e3 if total_us > 0 else "not measured")
+
+
+def phase_train(work: Path) -> dict:
     """``training.train`` on the card with the fam5tel recipe, warm-started
-    from the bundled file, 8 steps with a checkpoint every 4, then a second
-    call of 2 steps on the same checkpoint directory (crash resume from
-    step 8).  ``step_kernel_ms`` is a step's kernel time from the
-    train-step phase.  K1 must launch once a step; the saved file must load in
-    ``GpuBackend`` and separate 8 unseen family voices (genuine-pair mean
-    cosine above the impostor mean).  Returns the path's launch counts."""
+    from the bundled file, 8 steps with a checkpoint every 4 (under the
+    profiler, for the device's busy time), then a second call of 2 steps on
+    the same checkpoint directory (crash resume from step 8).  Both log
+    every 20 steps, the trainer's default.  K1 must launch once a step; the
+    saved file must load in ``GpuBackend`` and separate 8 unseen family
+    voices (genuine-pair mean cosine above the impostor mean).  Returns the
+    path's launch counts."""
     import numpy as np
     import torch
 
@@ -1283,16 +1394,23 @@ def phase_train(work: Path, step_kernel_ms) -> dict:
     ck = work / "train-ckpt"
     shutil.rmtree(ck, ignore_errors=True)
     kw = {**TRAIN_RECIPE, "model_name": "ecapa", "resume_path": FAM5TEL, "ckpt_dir": ck,
-          "ckpt_every": 4, "log_every": 1, "device": "cuda"}
+          "ckpt_every": 4, "device": "cuda"}
     wrappers = reset_launches()
     rows, outs = [], []
     for steps, name in ((8, "train"), (2, "train-resume")):
         logs: list[str] = []
+
+        def call(steps=steps, name=name, logs=logs):
+            return training.train(steps=steps, out_path=work / f"{name}.msgpack",
+                                  log=logs.append, **kw)
+
         t0 = time.perf_counter()
-        state, out = training.train(steps=steps, out_path=work / f"{name}.msgpack",
-                                    log=logs.append, **kw)
+        if name == "train":
+            (state, out), busy_ms = _profiled_device_ms(call)
+        else:
+            (state, out), busy_ms = call(), "not measured"
         torch.cuda.synchronize()
-        rows.append(_train_report(name, state, logs, time.perf_counter() - t0, step_kernel_ms))
+        rows.append(_train_report(name, state, logs, time.perf_counter() - t0, busy_ms))
         outs.append(out)
     launches = read_launches(wrappers)
 
@@ -1353,7 +1471,7 @@ def phase_train_xvector(work: Path) -> dict:
     t0 = time.perf_counter()
     state, out = training.train(steps=2, model_name="xvector",
                                 out_path=work / "train-xvector.msgpack", log=logs.append,
-                                log_every=1, device="cuda", **TRAIN_RECIPE)
+                                device="cuda", **TRAIN_RECIPE)
     torch.cuda.synchronize()
     row = _train_report("train-xvector", state, logs, time.perf_counter() - t0, "not measured")
     launches = read_launches(wrappers)
@@ -1478,8 +1596,8 @@ def main() -> int:
     path_launches["embed-cluster"] = phase_embed_cluster(diarizer.backend.engine)
     path_launches["assign"] = phase_assign(out_dir, "cuda")
     path_launches["process"] = phase_process(out_dir, "cuda")
-    step_kernel_ms = phase_train_step(device)
-    path_launches["train"] = phase_train(out_dir, step_kernel_ms)
+    phase_train_step(device)
+    path_launches["train"] = phase_train(out_dir)
     path_launches["train-xvector"] = phase_train_xvector(out_dir)
 
     for row in kernel_rows:

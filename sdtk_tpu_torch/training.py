@@ -82,6 +82,16 @@ def warm_start(state: TrainState, model_name: str, path: str | Path) -> tuple[in
     return merged[0], skipped[0]
 
 
+def featurize_step(state: TrainState, wavs: np.ndarray, cls: np.ndarray, tcfg: TrainConfig,
+                   fcfg: FrontendConfig, device: torch.device) -> dict[str, torch.Tensor]:
+    """One training step from host waveforms: K1 featurizes ``wavs`` on
+    ``device`` (the frontend has no parameters, so no gradient flows into
+    it), then one AdamW step on ``cls``'s labels.  The loop of ``train``."""
+    with torch.no_grad():
+        feats, mask = log_mel_wave(torch.from_numpy(wavs).to(device), fcfg)
+    return train_step(state, feats, mask, torch.from_numpy(cls).to(device), tcfg)
+
+
 class _StepClock:
     """Per-step device time: CUDA events around the step on a GPU (read
     after the loop, so timing adds no synchronization), the host clock on
@@ -140,7 +150,8 @@ def train(
     """Train ``steps`` steps; returns (state, out_path).  ``crop_seconds``
     < ``seconds`` trains on random crops with random gain, the diarizer's
     window distribution.  ``state.timings`` holds the loop's wall seconds
-    (``loop_s``) and each step's loss, accuracy, host synthesis seconds,
+    (``loop_s``), the part of them spent writing checkpoints (``ckpt_s``),
+    and each step's loss, accuracy, host synthesis seconds,
     queue wait, and device milliseconds (featurize + forward + backward +
     AdamW; ``steps``)."""
     dev = resolve_device(device)
@@ -193,6 +204,7 @@ def train(
     clock = _StepClock(dev)
     host: list[tuple[float, float]] = []
     metrics: list[dict] = []
+    ckpt_s = 0.0
     t_loop = time.perf_counter()
     try:
         for step in range(steps):
@@ -204,16 +216,16 @@ def train(
             wavs, cls, synth_s = item
             host.append((synth_s, wait_s))
             clock.start()
-            with torch.no_grad():
-                feats, mask = log_mel_wave(torch.from_numpy(wavs).to(dev), fcfg)
-            out = train_step(state, feats, mask, torch.from_numpy(cls).to(dev), tcfg)
+            out = featurize_step(state, wavs, cls, tcfg, fcfg, dev)
             clock.stop()
             metrics.append(out)
             if step % log_every == 0 or step == steps - 1:
                 log(f"step {step:4d}  loss {float(out['loss']):7.4f}  "
                     f"acc {float(out['acc']):5.3f}  ({(time.perf_counter() - t_loop):6.1f}s)")
             if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
+                t0 = time.perf_counter()
                 p = save_train_state(ckpt_dir, state, step=state.step)
+                ckpt_s += time.perf_counter() - t0
                 log(f"checkpoint -> {p}")
         step_ms = clock.ms()  # synchronizes: the loop's wall time includes the device's
         loop_s = time.perf_counter() - t_loop
@@ -221,7 +233,7 @@ def train(
         stop_flag.set()
         while not prefetch.empty():  # unblock a producer stuck on put()
             prefetch.get_nowait()
-    state.timings = {"loop_s": loop_s, "steps": [
+    state.timings = {"loop_s": loop_s, "ckpt_s": ckpt_s, "steps": [
         {"loss": float(m["loss"]), "acc": float(m["acc"]), "synth_s": s, "wait_s": w,
          "step_ms": ms}
         for m, (s, w), ms in zip(metrics, host, step_ms)]}

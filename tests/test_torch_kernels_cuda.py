@@ -217,7 +217,8 @@ def test_log_mel_kernels_raise_outside_their_range(cuda):
 def test_train_step_on_card_matches_cpu(cuda, dtype, loss_rtol, grad_cos):
     from sdtk_tpu_torch.data.batches import BatchSpec, make_batch
     from sdtk_tpu_torch.models.ecapa import EcapaConfig, EcapaTdnn
-    from sdtk_tpu_torch.parallel.train import TrainConfig, create_train_state, train_step
+    from sdtk_tpu_torch.parallel.train import TrainConfig, create_train_state
+    from sdtk_tpu_torch.training import featurize_step
 
     torch.backends.cudnn.allow_tf32 = False
     spec = BatchSpec(family_ids=(0, 1, 2), n_speakers=8, batch=16, seconds=1.5, crop_seconds=1.0,
@@ -230,9 +231,7 @@ def test_train_step_on_card_matches_cpu(cuda, dtype, loss_rtol, grad_cos):
         state = create_train_state(EcapaTdnn(EcapaConfig(channels=64, dtype=dtype)),
                                    torch.Generator().manual_seed(0), cfg, dev)
         before = fbank_wave.log_mel_wave.launches
-        with torch.no_grad():
-            feats, mask = fbank_wave.log_mel_wave(torch.from_numpy(wavs).to(dev), fcfg)
-        m = train_step(state, feats, mask, torch.from_numpy(cls).to(dev), cfg)
+        m = featurize_step(state, wavs, cls, cfg, fcfg, dev)
         assert fbank_wave.log_mel_wave.launches == before + (dev.type == "cuda")
         params = [*state.model.parameters(), state.aam_weights]
         runs[dev.type] = (float(m["loss"]), [p.detach().cpu().double() for p in params],

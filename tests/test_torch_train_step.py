@@ -8,6 +8,7 @@ in each test."""
 
 from __future__ import annotations
 
+import copy
 from functools import partial
 
 import flax.linen as fnn
@@ -173,20 +174,42 @@ def _batch(seed: int, b: int = 16, t: int = 60):
     return feats, mask, rng.integers(0, N_CLASSES, b)
 
 
-def _jax_run(jax_model, n_steps: int, feats, mask, labels):
-    """JAX's create_train_state(PRNGKey(0)) and n_steps jitted train steps:
-    the initial state and (loss, acc, state) after each step."""
+def _jax_grads(state, feats, mask, labels, cfg):
+    """The gradient JAX's ``train_step`` takes: its ``loss_fn``, as written
+    there."""
+    def loss_fn(trainable):
+        emb, _ = state.apply_fn({"params": trainable["params"], "batch_stats": state.batch_stats},
+                                feats, mask=mask, train=True, mutable=["batch_stats"])
+        return jax_train.aam_softmax_loss(emb, trainable["aam"], labels, cfg.margin, cfg.scale)[0]
+
+    return jax.grad(loss_fn)({"params": state.params, "aam": state.aam_weights})
+
+
+def _jax_runs(jax_model, n_steps: int, batches):
+    """JAX's create_train_state(PRNGKey(0)), then n_steps jitted train steps
+    from it on each of ``batches``: the initial state and, for each batch,
+    (loss, acc, gradient, state after, Conv and Dense outputs) for each
+    step."""
     tcfg = jax_train.TrainConfig(n_classes=N_CLASSES, emb_dim=16)
-    state = jax_train.create_train_state(jax_model, jax.random.PRNGKey(0), tcfg,
-                                         jnp.zeros((1, feats.shape[1], 80)))
+    state0 = jax_train.create_train_state(jax_model, jax.random.PRNGKey(0), tcfg,
+                                          jnp.zeros((1, batches[0][0].shape[1], 80)))
     step = jax.jit(partial(jax_train.train_step, cfg=tcfg))
-    init = jax.device_get((state.params, state.batch_stats, state.aam_weights))
-    out = []
-    for _ in range(n_steps):
-        state, m = step(state, jnp.asarray(feats), jnp.asarray(mask), jnp.asarray(labels))
-        out.append((float(m["loss"]), float(m["acc"]),
-                    jax.device_get((state.params, state.batch_stats, state.aam_weights))))
-    return init, out
+    grad = jax.jit(partial(_jax_grads, cfg=tcfg))
+    linear = jax.jit(partial(_linear_outputs, jax_model))
+    init = jax.device_get((state0.params, state0.batch_stats, state0.aam_weights))
+    runs = []
+    for batch in batches:
+        args = tuple(jnp.asarray(a) for a in batch)
+        state, out = state0, []
+        for _ in range(n_steps):
+            g = jax.device_get(grad(state, *args))
+            pre = linear({"params": state.params, "batch_stats": state.batch_stats}, args[0], args[1])
+            pre = {k.removesuffix("/__call__"): v[0] for k, v in _leaves(pre).items()}
+            state, m = step(state, *args)
+            out.append((float(m["loss"]), float(m["acc"]), g,
+                        jax.device_get((state.params, state.batch_stats, state.aam_weights)), pre))
+        runs.append(out)
+    return init, runs
 
 
 def _port_state(model, init) -> TrainState:
@@ -207,61 +230,162 @@ def _leaves(tree, prefix=""):
     return out
 
 
-def _assert_state_close(state: TrainState, want, atol: float, n_steps: int):
-    """Every leaf within ``atol``, but ``ZERO_GRAD_LEAF``: within the ±lr a
-    step that each package may move it, and of no effect on the output."""
+# A gradient element within the rounding noise of the two packages' sums
+# has a sign neither determines, and Adam's normalized first steps turn it
+# into ±lr; the noise stays in both packages' moments after that step.  The
+# floor of that noise, per leaf: 1e-4 of the leaf's largest |g|, and 2e-6
+# where a whole leaf's gradient is noise (attention's second bias: softmax
+# over time ignores a per-channel shift).  Each step holds every element of
+# the port's gradient within this floor of JAX's, so the floor is checked,
+# not assumed: above it the two signs agree, and no element's gradient,
+# exempt or not, can be wrong by more than the floor.
+GRAD_RTOL = 1e-4
+GRAD_ATOL = 2e-6
+# A ReLU input within rounding of zero can take one side in each package
+# (a kink): the frame's term drops out of one package's gradient for
+# everything upstream of it.  At such a step the elements the floor misses
+# join the exempt ones, and what they miss by is held to 2 % of their
+# leaf's norm instead.
+KINK_GRAD_RTOL = 2e-2
+# Two Adam updates of opposite sign: |m̂/√v̂| ≤ 1.0036 at steps 1-3 for
+# β = (0.9, 0.999) (Cauchy-Schwarz over the step weights), plus the decay.
+EXEMPT_BOUND = 2 * 1e-3 * 1.01
+
+
+def _linear_outputs(jax_model, variables, feats, mask):
+    """Every Conv and Dense output of JAX's train-mode forward, by flax
+    path."""
+    _, upd = jax_model.apply(
+        variables, feats, mask=mask, train=True, mutable=["batch_stats", "intermediates"],
+        capture_intermediates=lambda mdl, _: isinstance(mdl, (fnn.Conv, fnn.Dense)))
+    return upd["intermediates"]
+
+
+def _sign_flips(model, feats, mask, want: dict) -> int:
+    """How many Conv and Dense outputs of the port's train-mode forward have
+    another sign than JAX's (``want``: flax path → output), ReLU inputs
+    among them.  Runs on a copy, so the running statistics stay as they
+    are."""
+    copied = copy.deepcopy(model).train()
+    got = {}
+    for name, mod in copied.named_modules():
+        if type(mod).__name__ in ("Conv", "Dense"):
+            mod.register_forward_hook(
+                lambda m, i, out, key=name.replace(".", "/"): got.__setitem__(key, out))
+    with torch.no_grad():
+        copied(torch.from_numpy(feats), torch.from_numpy(mask))
+    assert got.keys() == want.keys()
+    flips = 0
+    for key, out in got.items():
+        out = out.numpy()
+        out = np.moveaxis(out, 1, -1) if out.ndim == 3 else out  # JAX: channels last
+        flips += int((np.sign(out) != np.sign(want[key])).sum())
+    return flips
+
+
+def _check_step(state: TrainState, want, want_grads, exempt: dict, atol: float,
+                where: str, kink: bool = False) -> None:
+    """Holds the port's step to JAX's, from the same parameters and
+    statistics: every gradient element within its leaf's noise floor of
+    JAX's; every parameter and AAM element within ``atol``, but those whose
+    JAX gradient was below the floor at this step or an earlier one
+    (``exempt``, updated here), which are held to ``EXEMPT_BOUND``;
+    batch_stats within ``atol``.  At a ``kink`` step (``_sign_flips``) the
+    elements whose gradient misses the floor are exempt too, and what they
+    miss by is held to ``KINK_GRAD_RTOL`` of their leaf's norm.  Then loads
+    JAX's parameters, AAM weights and statistics, so that the next step
+    starts from the same state (the port's optimizer moments carry over)."""
+    model = state.model
+    sd = model.state_dict()
+    tree = ecapa_jax_tree(sd)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    got_g = {**_leaves(ecapa_jax_tree({**sd, **grads})["params"]),
+             "aam": state.aam_weights.grad.numpy()}
+    want_g = {**_leaves(want_grads["params"]), "aam": np.asarray(want_grads["aam"])}
     params, stats, aam = want
-    got = ecapa_jax_tree(state.model.state_dict())
-    for col, ref in (("params", params), ("batch_stats", stats)):
-        g, w = _leaves(got[col]), _leaves(ref)
-        assert g.keys() == w.keys()
-        for k in w:
-            bar = 2 * 1e-3 * n_steps * 1.001 if f"{col}/{k}" == f"params/{ZERO_GRAD_LEAF}" else atol
-            np.testing.assert_allclose(g[k], w[k], rtol=0, atol=bar, err_msg=f"{col}/{k}")
-    np.testing.assert_allclose(state.aam_weights.detach().numpy(), np.asarray(aam),
-                               rtol=0, atol=atol)
+    want_p = {**_leaves(params), "aam": np.asarray(aam)}
+    got_p = {**_leaves(tree["params"]), "aam": state.aam_weights.detach().numpy()}
+    assert got_g.keys() == want_g.keys() == got_p.keys() == want_p.keys()
+    for k, wg in want_g.items():
+        floor = max(GRAD_RTOL * float(np.abs(wg).max()), GRAD_ATOL)
+        dg = np.abs(got_g[k] - wg)
+        ex = exempt.get(k, False) | (np.abs(wg) <= floor)
+        if kink:
+            miss = dg > floor
+            rel = float(np.linalg.norm(dg[miss]) / np.linalg.norm(wg))
+            assert rel <= KINK_GRAD_RTOL, f"{where} {k}: gradient |Δ| {rel} of its norm"
+            ex = ex | miss
+        else:
+            assert dg.max() <= floor, f"{where} {k}: gradient |Δ| {dg.max()} > {floor}"
+        exempt[k] = ex
+        d = np.abs(got_p[k] - want_p[k])
+        assert d[~ex].max(initial=0.0) <= atol, f"{where} {k}: |Δ| {d[~ex].max()}"
+        assert d[ex].max(initial=0.0) <= EXEMPT_BOUND, f"{where} {k}: exempt |Δ| {d.max()}"
+    g_stats, w_stats = _leaves(tree["batch_stats"]), _leaves(stats)
+    assert g_stats.keys() == w_stats.keys()
+    for k in w_stats:
+        np.testing.assert_allclose(g_stats[k], w_stats[k], rtol=0, atol=atol,
+                                   err_msg=f"{where} batch_stats/{k}")
+    model.load_state_dict(ecapa_state_dict({"params": params, "batch_stats": stats}))
+    with torch.no_grad():
+        state.aam_weights.copy_(torch.from_numpy(np.array(aam, np.float32)))
+
+
+ECAPA_SEEDS = tuple(range(10))
 
 
 @pytest.fixture(scope="module")
-def ecapa_f32_run():
-    feats, mask, labels = _batch(3)
+def ecapa_f32_runs():
+    batches = [_batch(seed) for seed in ECAPA_SEEDS]
     jax_model = JaxEcapa(JaxEcapaConfig(dtype="float32", **SMALL_ECAPA))
-    return (feats, mask, labels), _jax_run(jax_model, 3, feats, mask, labels)
+    return batches, _jax_runs(jax_model, 3, batches)
 
 
 @pytest.mark.parametrize("n_steps", [1, 3])
-def test_small_ecapa_steps_match_jax_f32(ecapa_f32_run, n_steps):
+def test_small_ecapa_steps_match_jax_f32(ecapa_f32_runs, n_steps):
     """A small ECAPA (channels 32, scale 4, MFA 96, attention 16, SE 16,
     emb 16, f32) from JAX's create_train_state(PRNGKey(0)), carried across,
-    then n_steps steps on one batch of 16 with padded frames: each step's
-    loss within 1e-5 relative, accuracy equal; params, AAM weights and
-    batch_stats within 2e-5 after the last step (measured ≤ 8.4e-7, loss
-    ≤ 3.2e-6 relative).
+    then n_steps steps on each of ten batches of 16 with padded frames
+    (seeds 0-9), each step from JAX's parameters and statistics: each
+    step's loss within 1e-5 relative, accuracy equal, gradient within the
+    noise floor above, and params, AAM weights and batch_stats within 2e-5,
+    the exempt elements within ``EXEMPT_BOUND``; at most one step in ten at
+    a ReLU kink, held as ``_check_step`` says.
 
-    Adam's first steps move an element by about ±lr whatever the size of
-    its gradient, so an element whose gradient is within rounding noise of
-    zero takes a sign neither package determines.  With these inputs only
-    ``ZERO_GRAD_LEAF`` is such; with others an element here or there is
-    (a batch of 8 over 16 classes from seed 4: one at 2e-3)."""
-    (feats, mask, labels), (init, jax_steps) = ecapa_f32_run
-    state = _port_state(EcapaTdnn(EcapaConfig(dtype="float32", **SMALL_ECAPA)), init)
+    Left to run free, the two trajectories part: Adam moves an element
+    whose gradient is noise 2·lr apart, and later steps' gradients need not
+    ignore it.  Even from one state, a ReLU input within rounding of zero
+    can take one side in each package, so the gradient of everything
+    upstream of its frame differs (seeds 4 and 9 at step 3 flip a sign;
+    seed 4's moves a block-1 bias 2.5e-5 apart)."""
+    batches, (init, jax_runs) = ecapa_f32_runs
     cfg = TrainConfig(n_classes=N_CLASSES, emb_dim=16)
-    for i in range(n_steps):
-        m = train_step(state, torch.from_numpy(feats), torch.from_numpy(mask),
-                       torch.from_numpy(labels), cfg)
-        want_loss, want_acc, _ = jax_steps[i]
-        np.testing.assert_allclose(float(m["loss"]), want_loss, rtol=1e-5)
-        assert float(m["acc"]) == want_acc
-    assert state.step == n_steps
-    _assert_state_close(state, jax_steps[n_steps - 1][2], atol=2e-5, n_steps=n_steps)
-    # the leaf's value does not reach the output: JAX's in place of the port's
-    # leaves the embeddings unchanged
+    kinks = 0
+    for seed, (feats, mask, labels), jax_steps in zip(ECAPA_SEEDS, batches, jax_runs):
+        state = _port_state(EcapaTdnn(EcapaConfig(dtype="float32", **SMALL_ECAPA)), init)
+        exempt: dict = {}
+        for i in range(n_steps):
+            want_loss, want_acc, want_grads, want_state, want_pre = jax_steps[i]
+            kink = _sign_flips(state.model, feats, mask, want_pre) > 0
+            kinks += kink
+            m = train_step(state, torch.from_numpy(feats), torch.from_numpy(mask),
+                           torch.from_numpy(labels), cfg)
+            where = f"seed {seed} step {i + 1}"
+            np.testing.assert_allclose(float(m["loss"]), want_loss, rtol=1e-5, err_msg=where)
+            assert float(m["acc"]) == want_acc, where
+            _check_step(state, want_state, want_grads, exempt, atol=2e-5, where=where, kink=kink)
+            assert exempt[ZERO_GRAD_LEAF].all(), where
+        assert state.step == n_steps
+    assert kinks <= len(ECAPA_SEEDS) * n_steps // 10, f"{kinks} steps at a ReLU kink"
+    # attention's second bias does not reach the output: moving it by the
+    # bound leaves the embeddings unchanged
     state.model.eval()
     x, mk = torch.from_numpy(feats), torch.from_numpy(mask)
     with torch.no_grad():
         before = state.model(x, mk)
-        jax_bias = jax_steps[n_steps - 1][2][0]["asp"]["att2"]["bias"]
-        state.model.asp.att2.bias.copy_(torch.from_numpy(np.array(jax_bias)))
+        bias = state.model.asp.att2.bias
+        signs = torch.randn(bias.shape, generator=torch.Generator().manual_seed(0)).sign()
+        bias.add_(EXEMPT_BOUND * signs)
         np.testing.assert_allclose(state.model(x, mk).numpy(), before.numpy(), rtol=0, atol=1e-5)
 
 
@@ -273,11 +397,11 @@ def test_small_ecapa_steps_bf16():
     sign of their own in each package: by a third step the losses run
     0.1-2.3 % apart (seeds 3 and 4)."""
     feats, mask, labels = _batch(4)
-    init, jax_steps = _jax_run(JaxEcapa(JaxEcapaConfig(dtype="bfloat16", **SMALL_ECAPA)),
-                               2, feats, mask, labels)
+    init, (jax_steps,) = _jax_runs(JaxEcapa(JaxEcapaConfig(dtype="bfloat16", **SMALL_ECAPA)),
+                                   2, [(feats, mask, labels)])
     state = _port_state(EcapaTdnn(EcapaConfig(dtype="bfloat16", **SMALL_ECAPA)), init)
     cfg = TrainConfig(n_classes=N_CLASSES, emb_dim=16)
-    for want_loss, _, _ in jax_steps:
+    for want_loss, *_ in jax_steps:
         m = train_step(state, torch.from_numpy(feats), torch.from_numpy(mask),
                        torch.from_numpy(labels), cfg)
         np.testing.assert_allclose(float(m["loss"]), want_loss, rtol=2e-2)
@@ -285,15 +409,20 @@ def test_small_ecapa_steps_bf16():
 
 def test_small_xvector_step_matches_jax():
     """One step of a small x-vector (channels 32, 48 before pooling, emb 16,
-    f32) from JAX's init: loss within 1e-5 relative, accuracy equal, params,
-    AAM weights and batch_stats within 2e-5."""
-    feats, mask, labels = _batch(5)
-    init, jax_steps = _jax_run(JaxXVector(JaxXVectorConfig(dtype="float32", **SMALL_XVECTOR)),
-                               1, feats, mask, labels)
-    state = _port_state(XVector(XVectorConfig(dtype="float32", **SMALL_XVECTOR)), init)
-    m = train_step(state, torch.from_numpy(feats), torch.from_numpy(mask),
-                   torch.from_numpy(labels), TrainConfig(n_classes=N_CLASSES, emb_dim=16))
-    want_loss, want_acc, want_state = jax_steps[0]
-    np.testing.assert_allclose(float(m["loss"]), want_loss, rtol=1e-5)
-    assert float(m["acc"]) == want_acc
-    _assert_state_close(state, want_state, atol=2e-5, n_steps=1)
+    f32) from JAX's init, on three batches (seeds 5-7): loss within 1e-5
+    relative, accuracy equal, and the gradient, params, AAM weights and
+    batch_stats held as the ECAPA steps are, at 2e-5."""
+    batches = [_batch(seed) for seed in (5, 6, 7)]
+    init, jax_runs = _jax_runs(JaxXVector(JaxXVectorConfig(dtype="float32", **SMALL_XVECTOR)),
+                               1, batches)
+    cfg = TrainConfig(n_classes=N_CLASSES, emb_dim=16)
+    for seed, (feats, mask, labels), ((want_loss, want_acc, want_grads, want_state, want_pre),) \
+            in zip((5, 6, 7), batches, jax_runs):
+        state = _port_state(XVector(XVectorConfig(dtype="float32", **SMALL_XVECTOR)), init)
+        kink = _sign_flips(state.model, feats, mask, want_pre) > 0
+        m = train_step(state, torch.from_numpy(feats), torch.from_numpy(mask),
+                       torch.from_numpy(labels), cfg)
+        np.testing.assert_allclose(float(m["loss"]), want_loss, rtol=1e-5)
+        assert float(m["acc"]) == want_acc
+        _check_step(state, want_state, want_grads, {}, atol=2e-5, where=f"seed {seed}",
+                    kink=kink)
