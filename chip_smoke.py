@@ -86,6 +86,19 @@ any failure raises and exits non-zero:
              voices (genuine-pair mean cosine above the impostor mean);
 19. train-xvector — 2 steps of the full-width x-vector from scratch; the
              file loads through ``SDTK_BACKEND_TOWER=xvector``;
+20. longform — ``cli.diarize --longform`` on a synthesized 3-speaker
+             meeting of about an hour inside a one-rank NCCL group (the
+             ``SDTK_*`` variables): 3 speakers, confusion and DER at
+             collar 0.75 at or below fixed bars, K1 launched once; wall
+             seconds, audio-s per s, stage seconds, peak memory, the
+             device's idle share by the profiler; then the 61.3 s meeting
+             of phase 5 (3 speakers, DER_BAR), the hour with the energy
+             gate off (3 speakers, DER_BAR), and K1's launch on the
+             path's own input against its plain version;
+21. train-ddp — ``training.train(mesh_spec="data=1")`` in a one-rank NCCL
+             group against the same 2 steps without a group: the losses
+             bit for bit, the parameters within bf16's rounding, K1 once a
+             step;
 
 The kernel phase holds all four kernels (log-mel from the waveform, the
 cosine scores, the fused identify top-k, log-mel from frames) at the
@@ -142,6 +155,16 @@ D = 192  # ECAPA embedding width
 IDENTIFY_N = 8192  # profile rows of the identify phase: the fused route's threshold
 XVECTOR_IDENTIFY_N = 2048  # the x-vector identify phase's rows (full width, 512)
 DER_BAR = 0.05
+# The hour's bars are fixed, not taken from the labels under test.  A wrong
+# clustering moves confusion.  The energy gate (the JAX package's rule: a
+# window's mean log-mel above the loudest window's less 40 dB) drops quiet
+# speech of this synthetic family, a miss of 0.058 on the hour, so the CLI's
+# DER has that miss's room above DER_BAR; with the gate off the same hour
+# is held to DER_BAR.
+LONGFORM_CONFUSION_BAR = 0.01
+LONGFORM_DER_BAR = 0.07
+LONGFORM_SAMPLES = 57_600_000  # an hour at 16 kHz: the long-form frontend's row on one card
+LONGFORM_TURNS = 1200  # build_meeting turns of ~3 s: about an hour
 TOWER_COS_BAR = 0.995  # bf16 on the card vs f32 on the CPU, per window
 
 
@@ -243,6 +266,19 @@ def summary(name: str, source: str, replaces: str, row: dict, path: str | None) 
             **{k: row[k] for k in keys}, **{k: row[k] for k in extra if k in row}}
 
 
+def long_speechlike(n: int, seed: int):
+    """(1, n) synthetic speech of any length: one minute of voices, tiled at
+    a random gain a minute (an hour of single utterances would take minutes
+    to synthesize), and the full length."""
+    import numpy as np
+
+    minute, _ = speechlike_batch(1, 960_000, seed)
+    reps = -(-n // minute.shape[1])
+    gains = np.random.default_rng(seed).uniform(0.5, 1.5, size=(reps, 1)).astype(np.float32)
+    x = (minute.reshape(1, -1) * gains).reshape(1, -1)[:, :n]
+    return np.ascontiguousarray(x, np.float32), np.array([n], np.int64)
+
+
 def speechlike_batch(b: int, n: int, seed: int):
     """(b, n) synthetic voices with ragged lengths (tails zeroed, as the
     diarizer pads), plus the lengths.  Above 128 rows, 32 utterances are
@@ -261,14 +297,55 @@ def speechlike_batch(b: int, n: int, seed: int):
     return x.astype(np.float32), lengths.astype(np.int64)
 
 
+def k1_timing(x, cfg, coeff: float) -> tuple[float, dict]:
+    """K1's raw output on (B, N) ``x`` at preemphasis ``coeff`` against its
+    plain version: max|Δ|, and the kernel's, the plain version's and the
+    library's times beside the bound."""
+    import torch
+
+    from sdtk_tpu_torch.ops import fbank, fbank_wave
+    from sdtk_tpu_torch.ops.fbank import FrontendConfig
+
+    raw_err = float((fbank_wave.log_mel_wave_cuda(x, cfg, coeff)
+                     - fbank_wave.log_mel_wave_plain(x, cfg, coeff)).abs().max())
+    f32 = FrontendConfig(compute_dtype="float32")
+    win = torch.from_numpy(fbank.melbank.window(f32.win_length, f32.window)).to(x.device)
+    mel = torch.from_numpy(fbank.melbank.mel_filterbank(
+        f32.n_mels, f32.n_fft, f32.sample_rate, fmin=f32.mel_fmin)).to(x.device)
+
+    def kernel():
+        return fbank_wave.log_mel_wave_cuda(x, cfg, coeff)
+
+    # yardstick: one PyTorch FFT pipeline for the same function (f32)
+    def library():
+        frames = fbank.preemphasize(x, coeff).unfold(1, f32.win_length, f32.hop_length)
+        spec = torch.fft.rfft(frames * win, n=f32.n_fft)
+        return torch.log((spec.real ** 2 + spec.imag ** 2) @ mel + f32.log_floor)
+
+    b, n = x.shape
+    t = fbank.melbank.num_frames(n, cfg.win_length, cfg.hop_length)
+    n_freqs = cfg.n_fft // 2 + 1
+    item = 2 if cfg.compute_dtype == "bfloat16" else 4
+    nbytes = (x.numel() * 4 + b * t * cfg.n_mels * 4
+              + (2 * cfg.win_length * n_freqs + n_freqs * cfg.n_mels) * item)
+    flops = 2 * b * t * cfg.win_length * n_freqs * 2 + 2 * b * t * n_freqs * cfg.n_mels
+    row = {"frames": t, "ms": cuda_ms(kernel),
+           "plain_ms": cuda_ms(lambda: fbank_wave.log_mel_wave_plain(x, cfg, coeff)),
+           "library_ms": cuda_ms(library), **bound(nbytes, flops, cfg.compute_dtype)}
+    return raw_err, with_device_time(row, kernel, "log_mel_")
+
+
 def phase_kernel(device) -> dict:
     """K1: (B, N) waveform -> (B, T, 80) log-mel at the diarizer's chunk
     (128 one-second windows), bf16 in both log scales and f32; in bf16 also
     at the identify path's chunk (32 three-second windows), at a small
     ragged shape (3 x 4000: 23 frames a row, less than one tile), at the
     streaming path's chunk (16 windows of 1.5 s), at the embed + cluster
-    batch (1024 three-second windows, 196 MB of f32 input) and at the
-    trainer's batches (32 crops of 1.5 s; 256 in train-step's rate)."""
+    batch (1024 three-second windows, 196 MB of f32 input), at the
+    trainer's batches (32 crops of 1.5 s; 256 in train-step's rate) and at
+    one row of an hour (57 600 000 samples, 360 000 frames).  Phase
+    ``longform`` holds the long-form path's own launch (its input, its
+    coefficient 0 and its length) against the plain version."""
     import torch
 
     from sdtk_tpu_torch.ops import fbank, fbank_wave
@@ -282,15 +359,12 @@ def phase_kernel(device) -> dict:
     cases = [(name, (128, 16000)) for name in configs]
     cases += [("bf16-ln", (32, 48000)), ("bf16-db-fmin0", (32, 48000)), ("bf16-ln", (3, 4000)),
               ("bf16-ln", (16, 24000)), ("bf16-ln", (1024, 48000)),
-              ("bf16-ln", (32, 24000)), ("bf16-ln", (256, 24000))]
-    f32 = configs["f32-ln"]
-    win = torch.from_numpy(fbank.melbank.window(f32.win_length, f32.window)).to(device)
-    mel = torch.from_numpy(fbank.melbank.mel_filterbank(
-        f32.n_mels, f32.n_fft, f32.sample_rate, fmin=f32.mel_fmin)).to(device)
+              ("bf16-ln", (32, 24000)), ("bf16-ln", (256, 24000)),
+              ("bf16-ln", (1, LONGFORM_SAMPLES))]
     rows = {}
     for name, (b, n) in cases:
         cfg = configs[name]
-        x_np, len_np = speechlike_batch(b, n, seed=b)
+        x_np, len_np = speechlike_batch(b, n, seed=b) if b > 1 else long_speechlike(n, seed=1)
         x = torch.from_numpy(x_np).to(device)
         lengths = torch.from_numpy(len_np).to(device)
         got, gmask = fbank_wave.log_mel_wave(x, cfg, lengths=lengths)
@@ -303,31 +377,9 @@ def phase_kernel(device) -> dict:
         err = float((got - want).abs().max())
         if err > TOL[name]:
             raise AssertionError(f"{name} {(b, n)}: kernel vs plain max|d| {err} > {TOL[name]}")
-        coeff = cfg.preemphasis
-        raw_err = float((fbank_wave.log_mel_wave_cuda(x, cfg, coeff)
-                         - fbank_wave.log_mel_wave_plain(x, cfg, coeff)).abs().max())
-
-        def kernel(x=x, cfg=cfg, coeff=coeff):
-            return fbank_wave.log_mel_wave_cuda(x, cfg, coeff)
-
-        # yardstick: one PyTorch FFT pipeline for the same function (f32)
-        def library(x=x):
-            frames = fbank.preemphasize(x, f32.preemphasis).unfold(1, f32.win_length,
-                                                                   f32.hop_length)
-            spec = torch.fft.rfft(frames * win, n=f32.n_fft)
-            return torch.log((spec.real ** 2 + spec.imag ** 2) @ mel + f32.log_floor)
-
-        t = got.shape[1]
-        n_freqs = cfg.n_fft // 2 + 1
-        item = 2 if cfg.compute_dtype == "bfloat16" else 4
-        nbytes = (x.numel() * 4 + b * t * cfg.n_mels * 4
-                  + (2 * cfg.win_length * n_freqs + n_freqs * cfg.n_mels) * item)
-        flops = 2 * b * t * cfg.win_length * n_freqs * 2 + 2 * b * t * n_freqs * cfg.n_mels
-        row = {"shape": [b, n], "frames": t, "max_abs_err": err, "raw_max_abs_err": raw_err,
-               "tol": TOL[name], "ms": cuda_ms(kernel),
-               "plain_ms": cuda_ms(lambda: fbank_wave.log_mel_wave_plain(x, cfg, coeff)),
-               "library_ms": cuda_ms(library), **bound(nbytes, flops, cfg.compute_dtype)}
-        rows[name, b, n] = with_device_time(row, kernel, "log_mel_")
+        raw_err, timing = k1_timing(x, cfg, cfg.preemphasis)
+        rows[name, b, n] = {"shape": [b, n], "max_abs_err": err, "raw_max_abs_err": raw_err,
+                            "tol": TOL[name], **timing}
         emit({"phase": "kernel", "name": "log_mel_wave", "config": name,
               "library": "torch.fft.rfft + mel matmul (f32)", **rows[name, b, n]})
     return summary("log_mel_wave", "log_mel_wave.cu", "sdtk_tpu/ops/research/fbank_wave.py:148",
@@ -1491,6 +1543,227 @@ def phase_train_xvector(work: Path) -> dict:
     return launches
 
 
+def free_port() -> int:
+    """A free TCP port on this machine, for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def one_rank_group_env():
+    """``SDTK_*`` variables that describe a process group of one rank on
+    this machine, as a user's launcher sets them; removed afterwards."""
+    keys = ("SDTK_COORDINATOR", "SDTK_NUM_PROCESSES", "SDTK_PROCESS_ID")
+    os.environ.update({"SDTK_COORDINATOR": f"127.0.0.1:{free_port()}",
+                       "SDTK_NUM_PROCESSES": "1", "SDTK_PROCESS_ID": "0"})
+    try:
+        yield
+    finally:
+        for k in keys:
+            os.environ.pop(k, None)
+
+
+def phase_longform(work: Path, ref_61) -> dict:
+    """Long-form diarization of a synthesized same-family 3-speaker meeting
+    of about an hour (``build_meeting(7, 3, 1200, 3.0)``) through the CLI a
+    user calls, ``cli.diarize --longform --eval-rttm ... --collar 0.75``
+    (the CLI's 1.0 s / 0.375 s windows and energy gate), inside a process
+    group of one rank on NCCL that the ``SDTK_*`` variables describe, so the
+    collectives run on the card.  The first call runs under the profiler
+    (launch counts, peak memory, the device's busy time); a second, warm
+    call is timed alone; a third diarizes the main phase's 61.3 s meeting.
+    The hour is diarized once more with the energy gate off (the CLI's
+    windows, ``LongformDiarizer`` called directly).  Then K1's launch on the path's own input (the hour padded for one rank,
+    the halo chunk preemphasized, coefficient 0) is held against its plain
+    version.  Fails unless both meetings give 3 speakers, the hour's
+    confusion and DER are at or below LONGFORM_CONFUSION_BAR and
+    LONGFORM_DER_BAR, the 61.3 s meeting's DER and the ungated hour's at or
+    below DER_BAR, K1 launched once and agrees with its plain version.  Returns the hour
+    call's launch counts."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdtk_tpu_torch.cli import diarize as cli
+    from sdtk_tpu_torch.cluster.der import diarization_error_rate, load_rttm
+    from sdtk_tpu_torch.ops.fbank_wave import raw_log_mel_wave
+    from sdtk_tpu_torch.ops.longform import halo_chunk, pad_for_sharding
+    from sdtk_tpu_torch.pipeline import longform
+    from sdtk_tpu_torch.pipeline.diarize import to_rttm
+    from sdtk_tpu_torch.tools.make_meeting import write_meeting
+
+    t0 = time.perf_counter()
+    wav_path, rttm_path, audio_s = write_meeting(work / "hour", 7, 3, LONGFORM_TURNS, 3.0, "hour")
+    synth_s = time.perf_counter() - t0
+    (work / "meeting.rttm").write_text(to_rttm({"segments": ref_61}, recording_id="rec"))
+
+    results, inputs = [], []
+    real = longform.LongformDiarizer.diarize_waveform
+
+    def recorded(self, wav):
+        out = real(self, wav)
+        results.append(out)
+        inputs.append((self._engine.cfg, wav))
+        return out
+
+    def call(wav, rttm, out_json, rec):
+        with one_rank_group_env():
+            t0 = time.perf_counter()
+            rc = cli.main([str(wav), "--longform", "--eval-rttm", str(rttm), "--collar", "0.75",
+                           "--recording-id", rec, "--format", "json", "-q", "-o", str(out_json)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"longform: the CLI returned {rc} on {wav}")
+        return json.loads(Path(out_json).read_text()), wall
+
+    longform.LongformDiarizer.diarize_waveform = recorded
+    try:
+        wrappers = reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out1, wall1 = call(wav_path, rttm_path, work / "hour" / "out1.json", "hour")
+        launches = read_launches(wrappers)
+        peak = torch.cuda.max_memory_allocated()
+        busy_us = trace_device_us(prof)
+        out2, wall2 = call(wav_path, rttm_path, work / "hour" / "out2.json", "hour")
+        out3, _ = call(work / "meeting.wav", work / "meeting.rttm", work / "meeting-long.json",
+                       "rec")
+    finally:
+        longform.LongformDiarizer.diarize_waveform = real
+    first, warm, short = results
+
+    # the hour with the energy gate off: the gate's miss apart from the rest
+    fcfg, hour = inputs[0]
+    ungated = longform.LongformDiarizer(cfg=longform.LongformConfig(
+        window_seconds=1.0, hop_seconds=0.375, vad_threshold_db=-math.inf))  # the CLI's windows
+    ungated_out = ungated.diarize_waveform(hour)
+    ungated_der = diarization_error_rate(load_rttm(rttm_path)["hour"], ungated_out["segments"],
+                                         collar=0.75)
+
+    # K1 as sharded_log_mel launches it on the hour, against its plain version
+    tol = TOL["bf16-ln" if fcfg.compute_dtype == "bfloat16" else "f32-ln"]
+    x = torch.from_numpy(pad_for_sharding(np.asarray(hour, np.float32), 1, fcfg)).cuda()
+    pre = halo_chunk(x, fcfg)[None]
+    k1_out = raw_log_mel_wave(pre, fcfg, 0.0)
+    k1_finite = bool(torch.isfinite(k1_out).all())
+    k1_err, k1_timing_row = k1_timing(pre, fcfg, 0.0)
+    k1_row = {"shape": list(pre.shape), "max_abs_err": k1_err, "tol": tol, **k1_timing_row}
+    emit({"phase": "kernel", "name": "log_mel_wave", "config": "long-form path, coefficient 0",
+          "library": "torch.fft.rfft + mel matmul (f32)", **k1_row})
+    del x, pre, k1_out
+
+    busy_ms = busy_us / 1e3 if busy_us > 0 else "not measured"
+    in_call = sum(first["timings"].values())
+    row = {"phase": "longform", "audio_seconds": audio_s, "synth_seconds": synth_s,
+           "windows": len(first["window_labels"]), "windows_kept": first["windows_kept"],
+           "mesh_devices": first["mesh_devices"], "embed_chunk": longform.EMBED_CHUNK,
+           "n_speakers": out1["n_speakers"], "der_c075": out1["der"]["der"],
+           "miss": out1["der"]["miss"], "false_alarm": out1["der"]["false_alarm"],
+           "confusion": out1["der"]["confusion"], "der_bar": LONGFORM_DER_BAR,
+           "confusion_bar": LONGFORM_CONFUSION_BAR,
+           "ungated": {"n_speakers": ungated_out["n_speakers"],
+                       **{k: ungated_der[k] for k in ("der", "miss", "false_alarm", "confusion")}},
+           "wall_seconds_profiled": wall1, "wall_seconds": wall2,
+           "audio_s_per_s": audio_s / wall2, "stage_seconds_profiled": first["timings"],
+           "stage_seconds": warm["timings"],
+           "audio_s_per_s_in_diarize_waveform": audio_s / sum(warm["timings"].values()),
+           "launches": launches, "peak_memory_bytes": peak, "device_busy_ms_profiled": busy_ms,
+           "device_idle_share_of_call": (1.0 - busy_ms / 1e3 / wall1
+                                         if isinstance(busy_ms, float) else "not measured"),
+           "device_idle_share_of_diarize_waveform": (1.0 - busy_ms / 1e3 / in_call
+                                                     if isinstance(busy_ms, float)
+                                                     else "not measured"),
+           "same_labels_warm": warm["window_labels"] == first["window_labels"],
+           "meeting_61s": {"n_speakers": out3["n_speakers"], "der_c075": out3["der"]["der"],
+                           "der_bar": DER_BAR, "windows": len(short["window_labels"]),
+                           "stage_seconds": short["timings"]}}
+    emit(row)
+    if launches["log_mel_wave"] != 1 or any(v for k, v in launches.items() if k != "log_mel_wave"):
+        raise AssertionError(f"longform: launches {launches}, expected log_mel_wave 1 and no other")
+    if first["mesh_devices"] != 1:
+        raise AssertionError(f"longform: {first['mesh_devices']} ranks, expected a group of 1")
+    if out1["n_speakers"] != 3 or out3["n_speakers"] != 3:
+        raise AssertionError(f"longform: {out1['n_speakers']} and {out3['n_speakers']} speakers, "
+                             "expected 3 and 3")
+    if not out1["der"]["confusion"] <= LONGFORM_CONFUSION_BAR:
+        raise AssertionError(f"longform: confusion {out1['der']['confusion']} > "
+                             f"{LONGFORM_CONFUSION_BAR}")
+    if not out1["der"]["der"] <= LONGFORM_DER_BAR:
+        raise AssertionError(f"longform: DER {out1['der']['der']} > {LONGFORM_DER_BAR}")
+    if not out3["der"]["der"] <= DER_BAR:
+        raise AssertionError(f"longform: 61.3 s meeting DER {out3['der']['der']} > {DER_BAR}")
+    if ungated_out["n_speakers"] != 3 or not ungated_der["der"] <= DER_BAR:
+        raise AssertionError(f"longform: the hour with the gate off: {ungated_out['n_speakers']} "
+                             f"speakers, DER {ungated_der['der']} > {DER_BAR}")
+    if not k1_finite or not k1_err <= tol:
+        raise AssertionError(f"longform: K1 on the path's input {tuple(k1_row['shape'])}, "
+                             f"finite {k1_finite}, max|d| {k1_err} > {tol}")
+    return launches
+
+
+def phase_train_ddp(work: Path) -> dict:
+    """``training.train(mesh_spec="data=1")`` inside a process group of one
+    rank on NCCL (the gradient all-reduce and the global loss run on the
+    card), 2 steps of the fam5tel recipe, against the same call without a
+    group, both with cuDNN's deterministic algorithms so the two runs can
+    be compared at all: the losses equal bit for bit, every parameter
+    within bf16's rounding of its value (2⁻⁸ relative), K1 launched once a
+    step.  Returns the group run's launch counts."""
+    import torch
+
+    from sdtk_tpu_torch import training
+    from sdtk_tpu_torch.parallel import multihost
+
+    kw = {**TRAIN_RECIPE, "model_name": "ecapa", "resume_path": FAM5TEL, "device": "cuda",
+          "steps": 2, "seed": 3, "log_every": 1}
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+        try:
+            wrappers = reset_launches()
+            t0 = time.perf_counter()
+            grouped, _ = training.train(mesh_spec="data=1", out_path=work / "ddp.msgpack",
+                                        log=lambda m: None, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches(wrappers)
+        finally:
+            multihost.shutdown()
+        plain, _ = training.train(out_path=work / "plain.msgpack", log=lambda m: None, **kw)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    loss_g = [t["loss"] for t in grouped.timings["steps"]]
+    loss_p = [t["loss"] for t in plain.timings["steps"]]
+    worst, worst_ratio, max_abs = "", 0.0, 0.0
+    pg = dict(grouped.model.named_parameters())
+    for name, p in plain.model.named_parameters():
+        d = (pg[name].detach() - p.detach()).abs()
+        ratio = float((d / torch.clamp(p.detach().abs() * 2.0 ** -8, min=1e-30)).max())
+        max_abs = max(max_abs, float(d.max()))
+        if ratio >= worst_ratio:
+            worst, worst_ratio = name, ratio
+    row = {"phase": "train-ddp", "steps": 2, "losses_group": loss_g, "losses_no_group": loss_p,
+           "params_max_abs_diff": max_abs, "worst_param": worst,
+           "worst_param_diff_over_bf16_rounding": worst_ratio, "wall_seconds_group": wall,
+           "step_ms_group": [t["step_ms"] for t in grouped.timings["steps"]],
+           "step_ms_no_group": [t["step_ms"] for t in plain.timings["steps"]],
+           "launches": launches}
+    emit(row)
+    if loss_g != loss_p:
+        raise AssertionError(f"train-ddp: losses {loss_g} in the group, {loss_p} without")
+    if not worst_ratio <= 1.0:
+        raise AssertionError(f"train-ddp: {worst} {worst_ratio}x bf16's rounding apart")
+    if launches["log_mel_wave"] != 2 or any(v for k, v in launches.items() if k != "log_mel_wave"):
+        raise AssertionError(f"train-ddp: launches {launches}, expected log_mel_wave 2 and no other")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "sdtk_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1599,6 +1872,8 @@ def main() -> int:
     phase_train_step(device)
     path_launches["train"] = phase_train(out_dir)
     path_launches["train-xvector"] = phase_train_xvector(out_dir)
+    path_launches["longform"] = phase_longform(out_dir, ref)
+    path_launches["train-ddp"] = phase_train_ddp(out_dir)
 
     for row in kernel_rows:
         if row["path"] is not None:

@@ -1,6 +1,14 @@
 """``python -m sdtk_tpu_torch.cli.diarize`` — offline diarization of a WAV
-file on the GPU.  The counterpart of ``sdtk_tpu/cli/diarize.py``;
-``--longform`` and non-WAV containers are not ported yet."""
+file on the GPU.  The counterpart of ``sdtk_tpu/cli/diarize.py``; non-WAV
+containers are not ported yet.
+
+``--longform`` runs the time-sharded pipeline (``pipeline/longform.py``)
+for hour-scale recordings.  It joins the process group that the
+environment describes (``SDTK_COORDINATOR`` / ``SDTK_NUM_PROCESSES`` /
+``SDTK_PROCESS_ID``, or torchrun's variables; ``parallel/multihost.py``),
+one rank a device, e.g. ``torchrun --nproc-per-node 4 -m
+sdtk_tpu_torch.cli.diarize --longform meeting.wav``; without them it runs
+on one device.  Rank 0 prints or writes the result."""
 
 from __future__ import annotations
 
@@ -10,20 +18,54 @@ import json
 from .common import add_device, add_quiet, err, info
 
 
-def cmd_run(args) -> int:
-    from ..pipeline.diarize import DiarizeConfig, Diarizer, to_rttm, to_transcript_skeleton
+def _run_longform(args) -> dict | None:
+    """The long-form result, on rank 0; None on the other ranks."""
+    from ..parallel import multihost
+    from ..pipeline.longform import LongformConfig, LongformDiarizer
+    from ..utils.audio import load_audio
 
-    cfg = DiarizeConfig(
+    # The JAX CLI builds the config from this CLI's --window / --hop (1.0 /
+    # 0.375 by default), not from LongformConfig's 1.5 / 0.75 defaults.
+    # It passes no --vad either, so long-form from the CLI always takes the
+    # energy gate; both are kept here.
+    lcfg = LongformConfig(
         window_seconds=args.window,
         hop_seconds=args.hop,
         max_speakers=args.max_speakers,
         n_speakers=args.num_speakers,
         resegment=not args.no_resegment,
-        detect_overlap=args.detect_overlap,
-        vad=args.vad,
     )
+    wav, _ = load_audio(args.audio, target_sr=lcfg.sample_rate)
+    rank = multihost.initialize(device=args.device)["process_index"]
     try:
-        result = Diarizer(args.backend, cfg, device=args.device).diarize_file(args.audio)
+        result = LongformDiarizer(cfg=lcfg, device=args.device).diarize_waveform(wav)
+    finally:
+        multihost.shutdown()
+    if rank != 0:
+        return None
+    info(args, f"longform: {result['mesh_devices']} device(s)")
+    return result
+
+
+def cmd_run(args) -> int:
+    from ..pipeline.diarize import DiarizeConfig, Diarizer, to_rttm, to_transcript_skeleton
+
+    try:
+        if args.longform:
+            result = _run_longform(args)
+            if result is None:
+                return 0
+        else:
+            cfg = DiarizeConfig(
+                window_seconds=args.window,
+                hop_seconds=args.hop,
+                max_speakers=args.max_speakers,
+                n_speakers=args.num_speakers,
+                resegment=not args.no_resegment,
+                detect_overlap=args.detect_overlap,
+                vad=args.vad,
+            )
+            result = Diarizer(args.backend, cfg, device=args.device).diarize_file(args.audio)
     except FileNotFoundError:
         err(f"audio file not found: {args.audio}")
         return 1
@@ -85,6 +127,10 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--vad", default="auto", choices=["auto", "energy", "trained"])
     parser.add_argument("--detect-overlap", action="store_true",
                         help="Flag windows with two active speakers")
+    parser.add_argument("--longform", action="store_true",
+                        help="Time-sharded pipeline over the process group (one rank a "
+                             "device): sharded frontend, sharded embed, row-block "
+                             "affinity (hour-scale audio)")
     args = parser.parse_args(argv)
     return cmd_run(args)
 

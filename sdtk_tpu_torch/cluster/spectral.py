@@ -105,19 +105,26 @@ def kmeans(x: torch.Tensor, k: int, n_iters: int = 25) -> torch.Tensor:
 def topk_eigvecs_subspace(
     lap: torch.Tensor, k: int, n_iters: int = 50,
     generator: torch.Generator | None = None,
+    start: np.ndarray | torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Smallest-k eigenpairs of a normalized Laplacian by subspace iteration
     on (2·I − L)², then Rayleigh–Ritz.  Returns (eigvals ascending,
-    eigvecs (N, k)).  The random start comes from ``generator`` (default:
-    seed 0 on the CPU), so it is not the JAX package's start: eigenvalues
-    agree, eigenvectors only up to rotation within degenerate spaces."""
+    eigvecs (N, k)).  The random start, (N, min(N, k + 8)), is ``start``
+    when given, else drawn from ``generator`` (default: seed 0 on the
+    CPU), which is not the JAX package's start: eigenvalues agree,
+    eigenvectors only up to rotation within degenerate spaces."""
     n = lap.shape[0]
     c = 2.0
     a = c * torch.eye(n, dtype=lap.dtype, device=lap.device) - lap
     m = min(n, k + 8)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    q = torch.randn((n, m), generator=generator, dtype=lap.dtype).to(lap.device)
+    if start is not None:
+        q = torch.tensor(np.asarray(start), dtype=lap.dtype, device=lap.device)
+        if tuple(q.shape) != (n, m):
+            raise ValueError(f"subspace start of shape {tuple(q.shape)}, expected {(n, m)}")
+    else:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        q = torch.randn((n, m), generator=generator, dtype=lap.dtype).to(lap.device)
     q, _ = torch.linalg.qr(q)
     for _ in range(n_iters):
         q, _ = torch.linalg.qr(a @ (a @ q))

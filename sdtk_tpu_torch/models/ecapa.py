@@ -81,7 +81,13 @@ class BatchNorm(nn.Module):
     every axis but the channels (padded frames included, as the JAX tower
     does), normalizes with them, and moves the running statistics by
     r ← 0.99·r + 0.01·batch.  ``F.batch_norm(training=True)`` would update
-    with momentum 0.1 and the unbiased variance instead."""
+    with momentum 0.1 and the unbiased variance instead.
+
+    With ``sync`` set (``parallel/train.py:sync_batchnorm``) and more than
+    one rank in the process group, the batch is the global one, as GSPMD
+    makes it for the JAX step over a ``data`` mesh: Σx, Σx² and the count are
+    summed over the ranks in float32 by an all-reduce that autograd
+    differentiates, so the backward is the global batch's too."""
 
     momentum = 0.99
 
@@ -92,6 +98,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self.eps = eps
+        self.sync = False  # statistics over the process group's ranks
+
+    def _global_moments(self, x: torch.Tensor, dims: list[int]
+                        ) -> tuple[torch.Tensor, torch.Tensor] | None:
+        """(E[x], E[x²]) over every rank's batch, or None to use this
+        rank's alone (no sync, no group, or a group of one)."""
+        import torch.distributed as dist
+
+        if not self.sync or not dist.is_initialized() or dist.get_world_size() == 1:
+            return None
+        from torch.distributed.nn.functional import all_reduce
+
+        count = x.new_full((1,), float(x.numel() // x.shape[1]))
+        sums = all_reduce(torch.cat([x.sum(dims), (x * x).sum(dims), count]))
+        c = x.shape[1]
+        return sums[:c] / sums[-1], sums[c : 2 * c] / sums[-1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
@@ -99,8 +121,13 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         dims = [0, *range(2, x.dim())]
-        mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        moments = self._global_moments(x, dims)
+        if moments is None:
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        else:
+            mean, sq = moments
+            var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

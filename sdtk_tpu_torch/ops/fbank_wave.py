@@ -64,6 +64,16 @@ def log_mel_wave_cuda(x: torch.Tensor, cfg: FrontendConfig, coeff: float) -> tor
     return out
 
 
+def raw_log_mel_wave(x: torch.Tensor, cfg: FrontendConfig, coeff: float) -> torch.Tensor:
+    """The kernel's function on ``x``'s device: the kernel for a CUDA
+    tensor, :func:`log_mel_wave_plain` for a CPU one."""
+    if x.device.type == "cuda":
+        return log_mel_wave_cuda(x, cfg, coeff)
+    if x.device.type == "cpu":
+        return log_mel_wave_plain(x, cfg, coeff)
+    raise ValueError(f"log_mel_wave runs on cuda or cpu, not {x.device}")
+
+
 def log_mel_wave(
     x: torch.Tensor, cfg: FrontendConfig = FrontendConfig(),
     lengths: torch.Tensor | None = None,
@@ -77,12 +87,7 @@ def log_mel_wave(
     xk, coeff = x, cfg.preemphasis
     if cfg.center:
         xk, coeff = pad_centered(preemphasize(x, coeff), cfg), 0.0
-    if x.device.type == "cuda":
-        feats = log_mel_wave_cuda(xk, cfg, coeff)
-    elif x.device.type == "cpu":
-        feats = log_mel_wave_plain(xk, cfg, coeff)
-    else:
-        raise ValueError(f"log_mel_wave runs on cuda or cpu, not {x.device}")
+    feats = raw_log_mel_wave(xk, cfg, coeff)
     mask = mask_for(lengths, x, feats.shape[1], cfg)
     return normalize(feats, mask, cfg), mask
 

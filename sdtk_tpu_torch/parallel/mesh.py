@@ -3,7 +3,8 @@
 A spec such as ``"data=8"`` or ``"data=4,model=2"`` names the size of
 each mesh axis: ``data`` splits the batch, ``model`` the tower's
 channels.  The port parses the trainer's ``--mesh`` flag as the JAX
-package does; it trains on one device (:func:`mesh_size`).
+package does; ``data=N`` trains over a process group of N ranks
+(``training.py:data_parallel_ranks``), ``model`` is not ported.
 """
 
 from __future__ import annotations
@@ -23,11 +24,3 @@ def parse_mesh_spec(spec: str) -> dict[str, int]:
             raise ValueError(f"unknown mesh axis '{name}' (expected {AXES})")
         out[name] = int(val)
     return out
-
-
-def mesh_size(spec: str) -> int:
-    """Devices the spec asks for (1 for an empty spec)."""
-    n = 1
-    for size in parse_mesh_spec(spec).values():
-        n *= size
-    return n

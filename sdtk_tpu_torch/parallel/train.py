@@ -1,12 +1,22 @@
 """Speaker-embedding training step: AAM-softmax over the tower, AdamW.
 
-The counterpart of ``sdtk_tpu/parallel/train.py`` on one device.  The
-tower runs in train mode (BatchNorm on batch statistics, see
+The counterpart of ``sdtk_tpu/parallel/train.py``.  The tower runs in
+train mode (BatchNorm on batch statistics, see
 ``models/ecapa.py:BatchNorm``), an additive-angular-margin (ArcFace)
 softmax head scores its embeddings against one weight row per class,
 and :class:`AdamW` updates the tower's parameters and the head, all of
 them decayed, in ``optax.adamw``'s arithmetic (no mask).  BatchNorm's
 running statistics are buffers, moved by the forward pass.
+
+Data parallel (the JAX step over a ``data`` mesh): each rank of a
+``torch.distributed`` group holds an equal share of the global batch.
+:func:`sync_batchnorm` makes BatchNorm's statistics the global batch's,
+the loss is the global mean (each rank's mean, summed over the ranks
+and divided by their number), and so is the gradient: each rank's is
+summed by one all-reduce and scaled by 1 / world.  AdamW then runs
+replicated on equal gradients, so the ranks' parameters stay equal.
+Without a group the step is the one-device step; in a group of one rank
+the collectives run and change nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +27,8 @@ from dataclasses import dataclass, field
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .multihost import all_reduce_sum, in_group, rank_and_world
 
 
 @dataclass(frozen=True)
@@ -130,15 +142,44 @@ def create_train_state(model: nn.Module, generator: torch.Generator, cfg: TrainC
     return TrainState(model, aam_weights, make_optimizer(model, aam_weights, cfg))
 
 
+def sync_batchnorm(model: nn.Module) -> None:
+    """Make every train-mode BatchNorm of ``model`` take the statistics of
+    the batch summed over the process group's ranks."""
+    from ..models.ecapa import BatchNorm
+
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.sync = True
+
+
+def _all_reduce_mean_grads(params: list[torch.Tensor]) -> None:
+    """Every rank's gradients, summed and divided by the world size, in one
+    all-reduce of a flat buffer."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
+    flat.mul_(1.0 / rank_and_world()[1])
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset : offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 def train_step(state: TrainState, feats: torch.Tensor, mask: torch.Tensor,
                labels: torch.Tensor, cfg: TrainConfig) -> dict[str, torch.Tensor]:
     """One AdamW step on (feats, mask, labels); updates ``state`` in place
-    and returns the step's loss and accuracy (device tensors)."""
+    and returns the step's loss and accuracy (device tensors).  In a
+    process group the arguments are this rank's share of the global batch,
+    and the loss and accuracy returned are the global batch's."""
     state.model.train()
     emb = state.model(feats, mask)
     loss, acc = aam_softmax_loss(emb, state.aam_weights, labels, cfg.margin, cfg.scale)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss = loss.detach()
+    if in_group():
+        world = rank_and_world()[1]
+        _all_reduce_mean_grads([p for g in state.optimizer.param_groups for p in g["params"]])
+        loss, acc = all_reduce_sum(torch.stack([loss, acc])) / world
     state.optimizer.step()
     state.step += 1
-    return {"loss": loss.detach(), "acc": acc}
+    return {"loss": loss, "acc": acc}

@@ -1,9 +1,18 @@
 """Embedder trainer: AAM-softmax on the synthetic voice corpus.
 
-The counterpart of ``sdtk_tpu/training.py`` on one GPU.  Run:
+The counterpart of ``sdtk_tpu/training.py``.  Run:
 ``python -m sdtk_tpu_torch.training --steps 300 --speakers 64`` (or
 ``python -m sdtk_tpu_torch train ...``); ``--device cpu`` runs on the
 CPU with the frontend kernel's plain version.
+
+``--mesh data=N`` trains data-parallel over a process group of N ranks,
+one device each (``parallel/multihost.py``; e.g. ``torchrun
+--nproc-per-node N -m sdtk_tpu_torch.training --mesh data=N``).  Every
+rank draws the same global batch from the seeded producer, as the JAX
+trainer draws it, and takes its own rows; the step is the global
+batch's (``parallel/train.py``).  Rank 0 alone writes checkpoints and
+the inference file; every rank restores them.  ``model=N`` is not
+ported.
 
 A producer thread synthesizes batches on the host (``data/batches.py``:
 family voices, random crops and gains, augmentation, noise, beds) from
@@ -35,12 +44,13 @@ from .models.ecapa import EcapaConfig, EcapaTdnn
 from .models.xvector import XVector, XVectorConfig
 from .ops.fbank import FrontendConfig
 from .ops.fbank_wave import log_mel_wave
+from .parallel import multihost
 from .parallel.checkpoint import latest_checkpoint, restore_train_state, save_train_state
-from .parallel.mesh import mesh_size
-from .parallel.train import TrainConfig, TrainState, create_train_state, train_step
+from .parallel.mesh import parse_mesh_spec
+from .parallel.train import (TrainConfig, TrainState, create_train_state, sync_batchnorm,
+                             train_step)
 from .utils.checkpoint import (ecapa_jax_tree, ecapa_state_dict, read_msgpack, write_msgpack,
                                xvector_jax_tree, xvector_state_dict)
-from .utils.device import resolve_device
 
 # tower name → (state dict → flax variables, flax variables → state dict)
 CONVERTERS = {"ecapa": (ecapa_jax_tree, ecapa_state_dict),
@@ -86,10 +96,33 @@ def featurize_step(state: TrainState, wavs: np.ndarray, cls: np.ndarray, tcfg: T
                    fcfg: FrontendConfig, device: torch.device) -> dict[str, torch.Tensor]:
     """One training step from host waveforms: K1 featurizes ``wavs`` on
     ``device`` (the frontend has no parameters, so no gradient flows into
-    it), then one AdamW step on ``cls``'s labels.  The loop of ``train``."""
+    it), then one AdamW step on ``cls``'s labels.  The loop of ``train``.
+    In a process group, ``wavs`` and ``cls`` are the global batch and this
+    rank steps on its own rows of it."""
+    rank, world = multihost.rank_and_world()
+    rows = slice(rank * len(cls) // world, (rank + 1) * len(cls) // world)
     with torch.no_grad():
-        feats, mask = log_mel_wave(torch.from_numpy(wavs).to(device), fcfg)
-    return train_step(state, feats, mask, torch.from_numpy(cls).to(device), tcfg)
+        feats, mask = log_mel_wave(torch.from_numpy(wavs[rows]).to(device), fcfg)
+    return train_step(state, feats, mask, torch.from_numpy(cls[rows]).to(device), tcfg)
+
+
+def data_parallel_ranks(mesh_spec: str, batch: int) -> int:
+    """The ranks a ``--mesh`` spec trains over: ``data`` (the process
+    group's size when the spec leaves it out), which must be the group's
+    size and divide the batch.  ``model`` > 1 raises."""
+    sizes = parse_mesh_spec(mesh_spec)
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"mesh '{mesh_spec}': model-axis sharding is not ported yet (ROADMAP Queue 1 "
+            "item 4.2); data-parallel meshes (data=N over a process group of N ranks) are")
+    world = multihost.rank_and_world()[1]
+    data = sizes.get("data") or world
+    if data != world:
+        raise RuntimeError(f"mesh '{mesh_spec}' needs a process group of {data} ranks; this "
+                           f"process has {world} (parallel/multihost.py:initialize)")
+    if batch % data:
+        raise ValueError(f"batch {batch} does not split over {data} ranks")
+    return data
 
 
 class _StepClock:
@@ -154,12 +187,14 @@ def train(
     and each step's loss, accuracy, host synthesis seconds,
     queue wait, and device milliseconds (featurize + forward + backward +
     AdamW; ``steps``)."""
-    dev = resolve_device(device)
-    if mesh_size(mesh_spec) > 1:
-        raise NotImplementedError(
-            f"mesh '{mesh_spec}': data-parallel training is not ported yet "
-            "(ROADMAP Queue 1, M13 data-parallel item, with M10); train on one device")
+    dev = multihost.rank_device(device)
+    world = data_parallel_ranks(mesh_spec, batch)
+    lead = multihost.rank_and_world()[0] == 0  # writes files and logs
+    if not lead:
+        log = lambda msg: None  # noqa: E731
     model = build_model(model_name, channels, scale)
+    if world > 1:
+        sync_batchnorm(model)
     spec = BatchSpec(
         family_ids=tuple(int(x) for x in str(families).split(",") if x != ""),
         n_speakers=n_speakers, batch=batch, seconds=seconds, crop_seconds=crop_seconds,
@@ -222,7 +257,7 @@ def train(
             if step % log_every == 0 or step == steps - 1:
                 log(f"step {step:4d}  loss {float(out['loss']):7.4f}  "
                     f"acc {float(out['acc']):5.3f}  ({(time.perf_counter() - t_loop):6.1f}s)")
-            if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
+            if lead and ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
                 t0 = time.perf_counter()
                 p = save_train_state(ckpt_dir, state, step=state.step)
                 ckpt_s += time.perf_counter() - t0
@@ -242,8 +277,11 @@ def train(
     to_tree = CONVERTERS[model_name][0]
     out_path = (Path(out_path) if out_path
                 else config.model_dir() / f"{type(model).__name__.lower()}.msgpack")
-    write_msgpack(out_path, to_tree(state.model.state_dict()))
-    log(f"saved params -> {out_path}")
+    if lead:
+        write_msgpack(out_path, to_tree(state.model.state_dict()))
+        log(f"saved params -> {out_path}")
+    if multihost.in_group():
+        torch.distributed.barrier()  # the file exists when any rank returns
     return state, out_path
 
 
@@ -264,7 +302,8 @@ def main(argv=None) -> int:
     p.add_argument("--model", default="ecapa", choices=["ecapa", "xvector", "conformer"])
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--mesh", default="",
-                   help="Mesh spec as in the JAX trainer; only one device is supported")
+                   help="Mesh spec as in the JAX trainer: data=N over a process group of N "
+                        "ranks (parallel/multihost.py); model=N is not ported")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out")
     p.add_argument("--resume", help="Warm-start from a saved .msgpack checkpoint")
@@ -284,31 +323,35 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain versions)")
     args = p.parse_args(argv)
-    train(
-        steps=args.steps,
-        n_speakers=args.speakers,
-        families=args.families,
-        batch=args.batch,
-        seconds=args.seconds,
-        crop_seconds=args.crop_seconds,
-        channels=args.channels,
-        scale=args.scale,
-        model_name=args.model,
-        lr=args.lr,
-        mesh_spec=args.mesh,
-        seed=args.seed,
-        out_path=args.out,
-        resume_path=args.resume,
-        ckpt_dir=args.ckpt_dir,
-        ckpt_every=args.ckpt_every,
-        noise_prob=args.noise_prob,
-        bed_prob=args.bed_prob,
-        bed_snr_db=tuple(args.bed_snr),
-        noise_snr_db=tuple(args.noise_snr),
-        aug_prob=args.aug_prob,
-        log=lambda msg: print(msg, file=sys.stderr),
-        device=args.device,
-    )
+    multihost.initialize(device=args.device)
+    try:
+        train(
+            steps=args.steps,
+            n_speakers=args.speakers,
+            families=args.families,
+            batch=args.batch,
+            seconds=args.seconds,
+            crop_seconds=args.crop_seconds,
+            channels=args.channels,
+            scale=args.scale,
+            model_name=args.model,
+            lr=args.lr,
+            mesh_spec=args.mesh,
+            seed=args.seed,
+            out_path=args.out,
+            resume_path=args.resume,
+            ckpt_dir=args.ckpt_dir,
+            ckpt_every=args.ckpt_every,
+            noise_prob=args.noise_prob,
+            bed_prob=args.bed_prob,
+            bed_snr_db=tuple(args.bed_snr),
+            noise_snr_db=tuple(args.noise_snr),
+            aug_prob=args.aug_prob,
+            log=lambda msg: print(msg, file=sys.stderr),
+            device=args.device,
+        )
+    finally:
+        multihost.shutdown()
     return 0
 
 

@@ -57,7 +57,10 @@ def test_port_imports_without_jax_or_sdtk_tpu():
         "          'sdtk_tpu_torch.data.augment', 'sdtk_tpu_torch.data.nonspeech',\n"
         "          'sdtk_tpu_torch.data.batches', 'sdtk_tpu_torch.parallel.train',\n"
         "          'sdtk_tpu_torch.parallel.checkpoint', 'sdtk_tpu_torch.parallel.mesh',\n"
-        "          'sdtk_tpu_torch.training', 'sdtk_tpu_torch.__main__'):\n"
+        "          'sdtk_tpu_torch.training', 'sdtk_tpu_torch.__main__',\n"
+        "          'sdtk_tpu_torch.parallel.multihost', 'sdtk_tpu_torch.ops.longform',\n"
+        "          'sdtk_tpu_torch.pipeline.longform', 'sdtk_tpu_torch.tools.make_meeting',\n"
+        "          'sdtk_tpu_torch.tools.bench_ranks'):\n"
         "    assert m in mods, m\n"
         "assert 'yaml' not in sys.modules\n"
         "print(len(mods))\n"

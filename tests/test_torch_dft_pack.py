@@ -57,6 +57,18 @@ def _unpack(packed, cfg):
     return torch.from_numpy(wr), torch.from_numpy(wi), torch.from_numpy(mel)
 
 
+@pytest.fixture()
+def one_thread():
+    """Exact equality of two float32 products needs each to sum in one
+    fixed order.  With several threads a CPU BLAS may split a product's
+    sums between threads and combine the parts in an order that can change
+    from call to call under load; one thread sums in one order."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _signal(b, n, seed=0):
     rng = np.random.default_rng(seed)
     t = np.arange(n) / 16000.0
@@ -97,7 +109,7 @@ def _log_mel_on_packed(frames, packed, cfg):
 
 
 @pytest.mark.parametrize("name", CONFIGS)
-def test_products_on_packed_operands_equal_raw_log_mel(name):
+def test_products_on_packed_operands_equal_raw_log_mel(name, one_thread):
     cfg = CONFIGS[name]
     x = _signal(3, 4000)
     xp = fbank.preemphasize(x, cfg.preemphasis)
@@ -109,7 +121,7 @@ def test_products_on_packed_operands_equal_raw_log_mel(name):
 
 
 @pytest.mark.parametrize("name", ["default", "win250", "mels30-fft256"])
-def test_products_on_packed_operands_equal_fbank_frames_plain(name):
+def test_products_on_packed_operands_equal_fbank_frames_plain(name, one_thread):
     cfg = CONFIGS[name]
     rng = np.random.default_rng(5)
     frames = torch.from_numpy(0.1 * rng.standard_normal((37, cfg.win_length)).astype(np.float32))

@@ -241,3 +241,60 @@ def test_train_step_on_card_matches_cpu(cuda, dtype, loss_rtol, grad_cos):
     assert float(torch.nn.functional.cosine_similarity(g_g, g_c, dim=0)) >= grad_cos
     flat_g, flat_c = torch.cat([a.flatten() for a in p_g]), torch.cat([b.flatten() for b in p_c])
     assert float(torch.nn.functional.cosine_similarity(flat_g, flat_c, dim=0)) >= 0.9999
+
+
+# The long-form frontend's rows: one rank's chunk plus the 240-sample halo,
+# preemphasized, through the kernel with coefficient 0 (ops/longform.py).
+# 57 600 240 samples are an hour on one card (360 000 frames, the largest
+# frame index of any path); 14 400 240 a quarter of it, one of 4 ranks.
+@pytest.mark.parametrize("n", [57_600_000 + 240, 14_400_000 + 240])
+def test_log_mel_wave_kernel_at_the_longform_shape(cuda, n):
+    x = fbank.preemphasize(_signal(1, n, seed=3), 0.97).to(cuda)
+    cfg = fbank.FrontendConfig()
+    before = fbank_wave.log_mel_wave.launches
+    got = fbank_wave.raw_log_mel_wave(x, cfg, 0.0)
+    want = fbank_wave.log_mel_wave_plain(x, cfg, 0.0)
+    torch.cuda.synchronize()
+    assert fbank_wave.log_mel_wave.launches == before + 1
+    assert got.shape == want.shape == (1, (n - 240) // 160, 80)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 0.05
+
+
+def test_sharded_log_mel_on_card_matches_cpu(cuda):
+    """One rank without a group: K1 launched once, against the CPU's plain
+    path within the bf16 bar."""
+    from sdtk_tpu_torch.ops.longform import sharded_log_mel
+
+    x = _signal(1, 16000 * 30 + 160 * 7, seed=4)[0]
+    before = fbank_wave.log_mel_wave.launches
+    got = sharded_log_mel(x.to(cuda))
+    torch.cuda.synchronize()
+    assert fbank_wave.log_mel_wave.launches == before + 1
+    want = sharded_log_mel(x)
+    assert got.shape == want.shape
+    assert float((got.cpu() - want).abs().max()) <= 0.05
+
+
+def test_longform_diarizer_on_card_matches_cpu(cuda):
+    """A random ECAPA-64 (bf16, from the same seed on both devices) on the
+    220 / 520 / 220 Hz pair of tests/test_torch_longform.py: the same
+    windows kept and labels up to a permutation."""
+    from sdtk_tpu_torch.pipeline.longform import LongformConfig, LongformDiarizer
+
+    sr = 16000
+    t = np.arange(4 * sr) / sr
+
+    def voice(f):
+        x = sum((0.5 / (k + 1)) * np.sin(2 * np.pi * f * (k + 1) * t) for k in range(4))
+        return 0.4 * x / np.max(np.abs(x))
+
+    wav = np.concatenate([voice(220), voice(520), voice(220)]).astype(np.float32)
+    wav += 0.005 * np.random.default_rng(11).standard_normal(len(wav)).astype(np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        d = LongformDiarizer(LongformConfig(n_speakers=2), channels=64, device=dev)
+        runs[dev] = d.diarize_waveform(wav)
+    a, b = np.asarray(runs["cuda"]["window_labels"]), np.asarray(runs["cpu"]["window_labels"])
+    assert runs["cuda"]["windows_kept"] == runs["cpu"]["windows_kept"]
+    assert len(set(zip(a.tolist(), b.tolist()))) == len(set(a.tolist())) == 2
