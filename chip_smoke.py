@@ -99,6 +99,25 @@ any failure raises and exits non-zero:
              group against the same 2 steps without a group: the losses
              bit for bit, the parameters within bf16's rounding, K1 once a
              step;
+22. heldout-eer — ``python -m sdtk_tpu_torch.evals.eer`` with the bundled
+             fam5tel (bf16), clean and telephone tiers at the JAX defaults
+             (16 held-out speakers x 6 trials of 3 s): EER (bars 0.03 and
+             0.05), its threshold, FAR / FRR at 0.354, the scored EER; K1
+             launched, and held at the path's launch (16 rows of 3 s);
+23. calibrate — ``evals.calibrate`` on a copy of fam5tel with the bundled
+             sidecar's arguments: the fitted thresholds and merge bar within
+             0.02 and the calibration EER within 0.01 of the bundled
+             sidecar, read back by a ``GpuBackend`` over the copy; then with
+             a 192-row cohort (``.cohort.npy`` written and read), and K3 at
+             the cohort product's shape (96 x 192 x 192);
+24. heldout-der — ``evals.der --heldout`` at its defaults (3 meetings, 3
+             speakers, the count estimated): DER at collars 0.75 (bar 0.10)
+             and 0.25;
+25. decode — the main phase's meeting as FLAC and MPEG Layer II (and as a
+             Layer III ``.mp3`` and an ``.m4a`` where the host has the
+             codecs) through ``cli.diarize``: the FLAC's labels equal the
+             WAV's, the MP2 (and MP3, M4A) give 3 speakers at DER_BAR, K1
+             launched on each; ``load_audio_batch`` equals ``load_audio``;
 
 The kernel phase holds all four kernels (log-mel from the waveform, the
 cosine scores, the fused identify top-k, log-mel from frames) at the
@@ -166,6 +185,7 @@ LONGFORM_DER_BAR = 0.07
 LONGFORM_SAMPLES = 57_600_000  # an hour at 16 kHz: the long-form frontend's row on one card
 LONGFORM_TURNS = 1200  # build_meeting turns of ~3 s: about an hour
 TOWER_COS_BAR = 0.995  # bf16 on the card vs f32 on the CPU, per window
+GPU_BACKEND = "sdtk_tpu_torch.backends.gpu:GpuBackend"  # the registry's "gpu"
 
 
 def emit(obj: dict) -> None:
@@ -335,6 +355,34 @@ def k1_timing(x, cfg, coeff: float) -> tuple[float, dict]:
     return raw_err, with_device_time(row, kernel, "log_mel_")
 
 
+def k1_case(name: str, cfg, x_np, len_np, device, config: str | None = None) -> dict:
+    """K1 on (B, N) ``x_np`` with ``len_np`` valid samples a row against its
+    plain version (at ``TOL[name]``), with its times; emits the row."""
+    import torch
+
+    from sdtk_tpu_torch.ops import fbank, fbank_wave
+
+    b, n = x_np.shape
+    x = torch.from_numpy(x_np).to(device)
+    lengths = torch.from_numpy(len_np).to(device)
+    got, gmask = fbank_wave.log_mel_wave(x, cfg, lengths=lengths)
+    want, wmask = fbank.log_mel(x, cfg, lengths=lengths)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name} {(b, n)}: kernel output not finite")
+    if not torch.equal(gmask, wmask):
+        raise AssertionError(f"{name} {(b, n)}: frame masks differ")
+    err = float((got - want).abs().max())
+    if err > TOL[name]:
+        raise AssertionError(f"{name} {(b, n)}: kernel vs plain max|d| {err} > {TOL[name]}")
+    raw_err, timing = k1_timing(x, cfg, cfg.preemphasis)
+    row = {"shape": [b, n], "max_abs_err": err, "raw_max_abs_err": raw_err, "tol": TOL[name],
+           **timing}
+    emit({"phase": "kernel", "name": "log_mel_wave", "config": config or name,
+          "library": "torch.fft.rfft + mel matmul (f32)", **row})
+    return row
+
+
 def phase_kernel(device) -> dict:
     """K1: (B, N) waveform -> (B, T, 80) log-mel at the diarizer's chunk
     (128 one-second windows), bf16 in both log scales and f32; in bf16 also
@@ -346,9 +394,6 @@ def phase_kernel(device) -> dict:
     one row of an hour (57 600 000 samples, 360 000 frames).  Phase
     ``longform`` holds the long-form path's own launch (its input, its
     coefficient 0 and its length) against the plain version."""
-    import torch
-
-    from sdtk_tpu_torch.ops import fbank, fbank_wave
     from sdtk_tpu_torch.ops.fbank import FrontendConfig
 
     configs = {
@@ -363,25 +408,8 @@ def phase_kernel(device) -> dict:
               ("bf16-ln", (1, LONGFORM_SAMPLES))]
     rows = {}
     for name, (b, n) in cases:
-        cfg = configs[name]
         x_np, len_np = speechlike_batch(b, n, seed=b) if b > 1 else long_speechlike(n, seed=1)
-        x = torch.from_numpy(x_np).to(device)
-        lengths = torch.from_numpy(len_np).to(device)
-        got, gmask = fbank_wave.log_mel_wave(x, cfg, lengths=lengths)
-        want, wmask = fbank.log_mel(x, cfg, lengths=lengths)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{name} {(b, n)}: kernel output not finite")
-        if not torch.equal(gmask, wmask):
-            raise AssertionError(f"{name} {(b, n)}: frame masks differ")
-        err = float((got - want).abs().max())
-        if err > TOL[name]:
-            raise AssertionError(f"{name} {(b, n)}: kernel vs plain max|d| {err} > {TOL[name]}")
-        raw_err, timing = k1_timing(x, cfg, cfg.preemphasis)
-        rows[name, b, n] = {"shape": [b, n], "max_abs_err": err, "raw_max_abs_err": raw_err,
-                            "tol": TOL[name], **timing}
-        emit({"phase": "kernel", "name": "log_mel_wave", "config": name,
-              "library": "torch.fft.rfft + mel matmul (f32)", **rows[name, b, n]})
+        rows[name, b, n] = k1_case(name, configs[name], x_np, len_np, device)
     return summary("log_mel_wave", "log_mel_wave.cu", "sdtk_tpu/ops/research/fbank_wave.py:148",
                    rows["bf16-ln", 128, 16000], "diarize")
 
@@ -394,6 +422,42 @@ def _gauss(shape, seed: int, device, dtype=None):
     return x.to(device=device, dtype=dtype or torch.float32)
 
 
+def cosine_case(q, p, config: str | None = None) -> dict:
+    """K3 on (Q, D) ``q`` and (N, D) ``p`` on the card against its plain
+    version (at SCORE_TOL), with its times, the library call's and the
+    bound; emits the row."""
+    import torch
+    import torch.nn.functional as F
+
+    from sdtk_tpu_torch.ops import cosine
+    from sdtk_tpu_torch.tools.measure import device_ms_by_kernel, host_ms
+
+    (q_n, d), p_n = q.shape, p.shape[0]
+    got = cosine.cosine_cuda(q, p)
+    want = cosine.cosine_plain(q, p)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or err > SCORE_TOL:
+        raise AssertionError(f"cosine ({q_n}, {p_n}, {d}): kernel vs plain max|d| {err}")
+
+    def kernel():
+        return cosine.cosine_cuda(q, p)
+
+    def library():
+        return F.normalize(q, dim=1) @ F.normalize(p, dim=1).T
+
+    row = {"shape": [q_n, p_n, d], "max_abs_err": err, "tol": SCORE_TOL,
+           "ms": cuda_ms(kernel), "plain_ms": cuda_ms(lambda: cosine.cosine_plain(q, p)),
+           "library_ms": cuda_ms(library),
+           "library_device_ms": sum(device_ms_by_kernel(library).values()),
+           "host_ms": host_ms(kernel), "library_host_ms": host_ms(library),
+           **bound(4 * (q_n * d + p_n * d + q_n * p_n), 2 * q_n * p_n * d, "tf32x3")}
+    row = with_device_time(row, kernel, "cosine_kernel")
+    emit({"phase": "kernel", "name": "cosine", **({"config": config} if config else {}),
+          "library": "F.normalize(q) @ F.normalize(p).T", **row})
+    return row
+
+
 def phase_kernel_cosine(device) -> dict:
     """K3: (Q, D) x (N, D) cosine, at the dense identify route's shape of
     the identify phase (29 windows x 8 192 profiles), at (32, 4096) and a
@@ -402,39 +466,11 @@ def phase_kernel_cosine(device) -> dict:
     card's fastest route for them, 3xTF32; beside the kernel's times, the
     library call's device time (all its kernels) and the host time of both
     calls."""
-    import torch
-    import torch.nn.functional as F
-
-    from sdtk_tpu_torch.ops import cosine
-    from sdtk_tpu_torch.tools.measure import device_ms_by_kernel, host_ms
-
     rows = {}
     for q_n, p_n, d in ((29, IDENTIFY_N, D), (32, 4096, D), (29, 4093, D), (199, IDENTIFY_N, D),
                         (29, IDENTIFY_N, 512)):
         q, p = _gauss((q_n, d), q_n, device), _gauss((p_n, d), p_n + d, device)
-        got = cosine.cosine_cuda(q, p)
-        want = cosine.cosine_plain(q, p)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not bool(torch.isfinite(got).all()) or err > SCORE_TOL:
-            raise AssertionError(f"cosine ({q_n}, {p_n}, {d}): kernel vs plain max|d| {err}")
-
-        def kernel(q=q, p=p):
-            return cosine.cosine_cuda(q, p)
-
-        def library(q=q, p=p):
-            return F.normalize(q, dim=1) @ F.normalize(p, dim=1).T
-
-        row = {"shape": [q_n, p_n, d], "max_abs_err": err, "tol": SCORE_TOL,
-               "ms": cuda_ms(kernel), "plain_ms": cuda_ms(lambda: cosine.cosine_plain(q, p)),
-               "library_ms": cuda_ms(library),
-               "library_device_ms": sum(device_ms_by_kernel(library).values()),
-               "host_ms": host_ms(kernel), "library_host_ms": host_ms(library),
-               **bound(4 * (q_n * d + p_n * d + q_n * p_n), 2 * q_n * p_n * d, "tf32x3")}
-        row = with_device_time(row, kernel, "cosine_kernel")
-        emit({"phase": "kernel", "name": "cosine",
-              "library": "F.normalize(q) @ F.normalize(p).T", **row})
-        rows[(q_n, p_n, d)] = row
+        rows[(q_n, p_n, d)] = cosine_case(q, p)
     return summary("cosine", "cosine.cu", "sdtk_tpu/ops/cosine.py:94",
                    rows[(29, IDENTIFY_N, D)], "identify")
 
@@ -778,14 +814,13 @@ def tower(name: str):
     the backend is built anew with that tower."""
     from sdtk_tpu_torch.backends.base import register_backend
 
-    target = "sdtk_tpu_torch.backends.gpu:GpuBackend"
     os.environ["SDTK_BACKEND_TOWER"] = name
-    register_backend("gpu", target)
+    register_backend("gpu", GPU_BACKEND)
     try:
         yield
     finally:
         os.environ.pop("SDTK_BACKEND_TOWER", None)
-        register_backend("gpu", target)
+        register_backend("gpu", GPU_BACKEND)
 
 
 def phase_streaming(wav, ref, device: str) -> dict:
@@ -1764,6 +1799,263 @@ def phase_train_ddp(work: Path) -> dict:
     return launches
 
 
+# Held-out verification EER of the bundled fam5tel in bf16 at the JAX
+# defaults (16 speakers x 6 trials, 3 s): 96 genuine trials, steps of ~1 %.
+# The JAX package's published EER is 1.0 % on both tiers.
+EER_BARS = {"clean": 0.03, "telephone": 0.05}
+# The port's fitter against the bundled sidecar's own numbers: the
+# augmentation's draws are NumPy's in both packages, so only the tower's
+# arithmetic differs.
+CALIB_BAR = {"eer_threshold": 0.02, "raw_eer_threshold": 0.02, "suggested_merge_tau": 0.02,
+             "calibration_eer": 0.01}
+CALIB_ARGS = ["--speakers", "24", "--families", "0,1,2,3,4", "--base-id", "500000",
+              "--augment-prob", "0.5"]
+HELDOUT_DER_BAR = 0.10  # collar 0.75; a broken clustering reads > 0.3
+
+
+def run_json(module, argv: list[str]) -> dict:
+    """``module.main(argv)``, as ``python -m`` runs it; its JSON line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    if rc != 0:
+        raise AssertionError(f"{module.__name__} {argv}: exit code {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_heldout_eer(device) -> dict:
+    """``python -m sdtk_tpu_torch.evals.eer`` on the card with the bundled
+    fam5tel (bf16), clean and telephone tiers at the JAX defaults: EER and
+    its threshold, FAR / FRR at 0.354, the EER of the scored space, the
+    launches.  Fails above EER_BARS or if K1 was not launched; then K1 at
+    the path's own launch (``embed_rows``' calls of 16 rows of 3 s)
+    against its plain version.  Returns the launch counts."""
+    import numpy as np
+
+    from sdtk_tpu_torch.backends.base import get_backend, register_backend
+    from sdtk_tpu_torch.data.synth_heldout import apply_tier, heldout_utterance
+    from sdtk_tpu_torch.evals import eer
+
+    register_backend("gpu", GPU_BACKEND)  # a backend over the bundled checkpoint
+    start = time.perf_counter()
+    wrappers = reset_launches()
+    rows = {}
+    for tier in EER_BARS:
+        t0 = time.perf_counter()
+        out = run_json(eer, ["--backend", "gpu", "--device", "cuda", "--tier", tier])
+        rows[tier] = {k: out.get(k) for k in ("eer", "eer_threshold", "far_at_reference",
+                                              "frr_at_reference", "scored_eer",
+                                              "calibrated_far_at_reference",
+                                              "calibrated_frr_at_reference", "genuine_mean",
+                                              "impostor_mean", "genuine_trials",
+                                              "impostor_trials")}
+        rows[tier]["seconds"] = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    emit({"phase": "heldout-eer", "checkpoint": FAM5TEL.name, "tiers": rows, "bars": EER_BARS,
+          "seconds": time.perf_counter() - start, "launches": launches})
+    for tier, bar in EER_BARS.items():
+        if not rows[tier]["eer"] <= bar:
+            raise AssertionError(f"heldout-eer: {tier} EER {rows[tier]['eer']} > {bar}")
+    if launches["log_mel_wave"] <= 0:
+        raise AssertionError("heldout-eer: log_mel_wave was not launched")
+    cfg = get_backend("gpu", device="cuda").engine.cfg
+    x = np.stack([apply_tier(heldout_utterance(s, 1, 3.0), "telephone", seed=1000 * s + 1)
+                  for s in range(16)])
+    k1_case("bf16-ln", cfg, x, np.full(16, x.shape[1], np.int64), device,
+            config="heldout-eer path, 16 held-out rows of 3 s")
+    return launches
+
+
+def phase_calibrate(work: Path, device) -> dict:
+    """``python -m sdtk_tpu_torch.evals.calibrate`` on a copy of fam5tel with
+    the bundled sidecar's own arguments, ``--out`` beside the copy: the
+    fitted fields within CALIB_BAR of ``models/ecapatdnn-fam5tel.calib.json``;
+    a ``GpuBackend`` over the copy reads the sidecar (merge bar, calibrated
+    scores).  Then the same with ``--cohort-size 192`` on a second copy: the
+    ``.cohort.npy`` is written and read (16 speakers, so 96 trials), and K3
+    is held against its plain version at the cohort product's shape (96 x
+    192 cohort rows).
+    Returns the launch counts of both runs."""
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch.backends.base import register_backend
+    from sdtk_tpu_torch.backends.gpu import GpuBackend
+    from sdtk_tpu_torch.evals import calibrate
+
+    d = work / "calib"
+    d.mkdir(parents=True, exist_ok=True)
+    bundled = json.loads(FAM5TEL.with_suffix(".calib.json").read_text())
+    fits, seconds = {}, {}
+    wrappers = reset_launches()
+    try:
+        # the cohort run at 16 speakers: 96 trials against 192 cohort rows
+        for name, extra in (("fam5tel", ["--cohort-size", "0"]),
+                            ("fam5tel-cohort", ["--cohort-size", "192", "--speakers", "16"])):
+            ckpt = d / f"{name}.msgpack"
+            shutil.copy(FAM5TEL, ckpt)
+            os.environ["SDTK_MODEL_PATH"] = str(ckpt)
+            register_backend("gpu", GPU_BACKEND)
+            t0 = time.perf_counter()
+            fits[name] = run_json(calibrate, ["--backend", "gpu", "--device", "cuda", *CALIB_ARGS,
+                                              *extra, "--out", str(ckpt.with_suffix(".calib.json"))])
+            seconds[name] = time.perf_counter() - t0
+    finally:
+        os.environ.pop("SDTK_MODEL_PATH", None)
+        register_backend("gpu", GPU_BACKEND)
+    launches = read_launches(wrappers)
+    fit = fits["fam5tel"]
+    diffs = {k: abs(fit[k] - bundled[k]) for k in CALIB_BAR}
+
+    reader = GpuBackend(params_path=d / "fam5tel.msgpack", device="cuda")
+    at_t = float(reader.calibrate_score(np.array([fit["eer_threshold"]], np.float32))[0])
+    with_cohort = GpuBackend(params_path=d / "fam5tel-cohort.msgpack", device="cuda")
+    cohort = with_cohort.cohort
+    emit({"phase": "calibrate", "fit": {k: fit[k] for k in (*CALIB_BAR, "gain", "raw_eer")},
+          "bundled": {k: bundled[k] for k in CALIB_BAR}, "abs_diff": diffs, "bars": CALIB_BAR,
+          "cohort_fit": {k: fits["fam5tel-cohort"][k] for k in ("score_space", "eer_threshold",
+                                                                "calibration_eer", "gain")},
+          "read_back": {"merge_tau": reader.cluster_merge_tau,
+                        "calibrated_at_eer_threshold": at_t,
+                        "cohort_shape": None if cohort is None else list(cohort.shape)},
+          "seconds": seconds, "launches": launches})
+    for k, bar in CALIB_BAR.items():
+        if not diffs[k] <= bar:
+            raise AssertionError(f"calibrate: {k} {fit[k]} is {diffs[k]} from the bundled "
+                                 f"{bundled[k]} (bar {bar})")
+    if reader.cluster_merge_tau != fit["suggested_merge_tau"] or not abs(at_t - 0.354) <= 1e-4:
+        raise AssertionError(f"calibrate: the backend read merge bar {reader.cluster_merge_tau} "
+                             f"and {at_t} at the EER threshold")
+    if cohort is None or cohort.shape != (192, D) or fits["fam5tel-cohort"]["cohort_size"] != 192:
+        raise AssertionError("calibrate: the 192-row cohort was not written and read back")
+    if launches["log_mel_wave"] <= 0:
+        raise AssertionError("calibrate: log_mel_wave was not launched")
+    p = torch.from_numpy(np.ascontiguousarray(cohort, np.float32)).to(device)
+    cosine_case(torch.roll(p, 1, dims=0)[:96].contiguous(), p,
+                config="calibrate cohort product, 96 x 192 cohort rows")
+    return launches
+
+
+def phase_heldout_der() -> dict:
+    """``python -m sdtk_tpu_torch.evals.der --heldout`` on the card at its
+    defaults (3 meetings of 3 held-out speakers, the count estimated, clean
+    tier): DER at collars 0.75 and 0.25, the launches; fails above
+    HELDOUT_DER_BAR at 0.75.  Returns the launch counts."""
+    from sdtk_tpu_torch.evals import der
+
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    out = run_json(der, ["--backend", "gpu", "--device", "cuda", "--heldout"])
+    wall = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    emit({"phase": "heldout-der", "meetings": out["meetings"], "tier": out["tier"],
+          "der_c075": out["by_collar"]["0.75"], "der_c025": out["by_collar"]["0.25"],
+          "bar": HELDOUT_DER_BAR, "audio_seconds": out["audio_seconds"],
+          "audio_s_per_s": out["audio_s_per_s"], "seconds": wall, "launches": launches})
+    if not out["by_collar"]["0.75"]["mean_der"] <= HELDOUT_DER_BAR:
+        raise AssertionError(f"heldout-der: DER {out['by_collar']['0.75']['mean_der']} > "
+                             f"{HELDOUT_DER_BAR}")
+    if launches["log_mel_wave"] <= 0:
+        raise AssertionError("heldout-der: log_mel_wave was not launched")
+    return launches
+
+
+def phase_decode(work: Path, ref) -> dict:
+    """The main phase's meeting, as the ``cli`` phase wrote it (16-bit WAV),
+    saved as FLAC (``flacio.encode``) and as MPEG Layer II
+    (``encode_layer2``), each through ``cli.diarize`` on the card: the FLAC's
+    samples are the WAV's, so its window labels must equal the WAV's; the
+    MP2 must give 3 speakers and DER <= DER_BAR; K1 launched on each.
+    Where the host has libmp3lame with libmpg123, and the AV libraries with
+    an AAC encoder, one Layer III ``.mp3`` and one ``.m4a`` more, each held
+    as the MP2 is; otherwise the row says it is not available, and why.
+    ``load_audio_batch`` over the WAV, FLAC and MP2 must equal
+    ``load_audio`` of each.  Returns the launch counts of every call."""
+    from sdtk_tpu_torch.cli import diarize as cli
+    from sdtk_tpu_torch.cluster.der import diarization_error_rate
+    from sdtk_tpu_torch.pipeline import diarize as pdiarize
+    from sdtk_tpu_torch.utils import audio, avio, flacio, mpegaudio, syscodec
+
+    start = time.perf_counter()
+    d = work / "decode"
+    d.mkdir(parents=True, exist_ok=True)
+    x16 = audio.load_audio(work / "meeting.wav")[0]
+    files = {"wav": work / "meeting.wav", "flac": d / "meeting.flac", "mp2": d / "meeting.mp2"}
+    t0 = time.perf_counter()
+    files["flac"].write_bytes(flacio.encode(x16, 16000, 16))
+    encode_s = {"flac": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    files["mp2"].write_bytes(mpegaudio.encode_layer2(x16, 16000, 128))
+    encode_s["mp2"] = time.perf_counter() - t0
+    missing = {}
+    if syscodec.lame_available() and syscodec.mpg123_available():
+        files["mp3"] = d / "meeting.mp3"
+        audio.save_mp3(files["mp3"], x16)
+    else:
+        missing["mp3"] = "libmp3lame or libmpg123 not found"
+    if avio.available() and avio.can_encode(".m4a"):
+        files["m4a"] = d / "meeting.m4a"
+        avio.encode_file(str(files["m4a"]), x16, 16000)
+    else:
+        missing["m4a"] = avio.disabled_reason() or "no AAC encoder in the AV libraries"
+
+    results = []
+    real = pdiarize.Diarizer.diarize_waveform
+
+    def recorded(self, wav):
+        out = real(self, wav)
+        results.append(out)
+        return out
+
+    rows, total = {}, {}
+    pdiarize.Diarizer.diarize_waveform = recorded
+    try:
+        for kind, path in files.items():
+            wrappers = reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main([str(path), "--format", "json", "-q", "-o", str(d / f"{kind}.json")])
+            wall = time.perf_counter() - t0
+            launches = read_launches(wrappers)
+            if rc != 0:
+                raise AssertionError(f"decode: the CLI returned {rc} on {path.name}")
+            res = results[-1]
+            der = diarization_error_rate(ref, res["segments"], collar=0.75)
+            rows[kind] = {"bytes": path.stat().st_size, "n_speakers": res["n_speakers"],
+                          "der_c075": der["der"], "seconds": wall, "launches": launches,
+                          "labels": res["window_labels"]}
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    finally:
+        pdiarize.Diarizer.diarize_waveform = real
+    t0 = time.perf_counter()
+    batch = audio.load_audio_batch([files[k] for k in ("wav", "flac", "mp2")])
+    batch_s = time.perf_counter() - t0
+    batch_same = all(b.shape == w.shape and bool((b == w).all())
+                     for b, w in zip(batch, (audio.load_audio(files[k])[0]
+                                             for k in ("wav", "flac", "mp2"))))
+    flac_same = rows["flac"]["labels"] == rows["wav"]["labels"]
+    emit({"phase": "decode", "audio_seconds": len(x16) / 16000, "encode_seconds": encode_s,
+          "formats": {k: {kk: v for kk, v in r.items() if kk != "labels"}
+                      for k, r in rows.items()},
+          "available": {k: {"available": False, "reason": v} for k, v in missing.items()},
+          "flac_labels_equal_wav": flac_same, "load_audio_batch_equal": batch_same,
+          "load_audio_batch_seconds": batch_s, "der_bar": DER_BAR,
+          "seconds": time.perf_counter() - start})
+    if not flac_same:
+        raise AssertionError("decode: the FLAC's window labels differ from the WAV's")
+    for kind in files:
+        if kind in ("wav", "flac"):
+            continue
+        if rows[kind]["n_speakers"] != 3 or not rows[kind]["der_c075"] <= DER_BAR:
+            raise AssertionError(f"decode: {kind} gave {rows[kind]['n_speakers']} speakers, "
+                                 f"DER {rows[kind]['der_c075']} (bar {DER_BAR})")
+    for kind, row in rows.items():
+        if row["launches"]["log_mel_wave"] <= 0:
+            raise AssertionError(f"decode: log_mel_wave was not launched on the {kind}")
+    if not batch_same:
+        raise AssertionError("decode: load_audio_batch differs from load_audio")
+    return total
+
+
 def main() -> int:
     if not (ROOT / "sdtk_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1874,6 +2166,10 @@ def main() -> int:
     path_launches["train-xvector"] = phase_train_xvector(out_dir)
     path_launches["longform"] = phase_longform(out_dir, ref)
     path_launches["train-ddp"] = phase_train_ddp(out_dir)
+    path_launches["heldout-eer"] = phase_heldout_eer(device)
+    path_launches["calibrate"] = phase_calibrate(out_dir, device)
+    path_launches["heldout-der"] = phase_heldout_der()
+    path_launches["decode"] = phase_decode(out_dir, ref)
 
     for row in kernel_rows:
         if row["path"] is not None:

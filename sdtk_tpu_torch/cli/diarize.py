@@ -1,6 +1,6 @@
-"""``python -m sdtk_tpu_torch.cli.diarize`` — offline diarization of a WAV
-file on the GPU.  The counterpart of ``sdtk_tpu/cli/diarize.py``; non-WAV
-containers are not ported yet.
+"""``python -m sdtk_tpu_torch.cli.diarize`` — offline diarization of an
+audio file (any container ``utils/audio.py`` reads) on the GPU.  The
+counterpart of ``sdtk_tpu/cli/diarize.py``.
 
 ``--longform`` runs the time-sharded pipeline (``pipeline/longform.py``)
 for hour-scale recordings.  It joins the process group that the
@@ -108,7 +108,7 @@ def cmd_run(args) -> int:
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="sdtk_tpu_torch.cli.diarize",
-                                     description="Offline diarization of a WAV file on the GPU")
+                                     description="Offline diarization of an audio file on the GPU")
     add_quiet(parser)
     parser.add_argument("audio")
     parser.add_argument("--format", choices=["json", "rttm", "transcript"], default="json")

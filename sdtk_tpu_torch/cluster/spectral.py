@@ -17,6 +17,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import threefry
 from ..utils.device import resolve_device
 from .affinity import cosine_affinity, refine_affinity
 
@@ -104,15 +105,15 @@ def kmeans(x: torch.Tensor, k: int, n_iters: int = 25) -> torch.Tensor:
 
 def topk_eigvecs_subspace(
     lap: torch.Tensor, k: int, n_iters: int = 50,
-    generator: torch.Generator | None = None,
     start: np.ndarray | torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Smallest-k eigenpairs of a normalized Laplacian by subspace iteration
     on (2·I − L)², then Rayleigh–Ritz.  Returns (eigvals ascending,
     eigvecs (N, k)).  The random start, (N, min(N, k + 8)), is ``start``
-    when given, else drawn from ``generator`` (default: seed 0 on the
-    CPU), which is not the JAX package's start: eigenvalues agree,
-    eigenvectors only up to rotation within degenerate spaces."""
+    when given, else the JAX package's own,
+    ``jax.random.normal(PRNGKey(0), (N, m))`` (``utils/threefry.py``): from
+    another start the eigenvectors agree only up to a rotation within
+    near-degenerate eigenspaces."""
     n = lap.shape[0]
     c = 2.0
     a = c * torch.eye(n, dtype=lap.dtype, device=lap.device) - lap
@@ -122,9 +123,7 @@ def topk_eigvecs_subspace(
         if tuple(q.shape) != (n, m):
             raise ValueError(f"subspace start of shape {tuple(q.shape)}, expected {(n, m)}")
     else:
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        q = torch.randn((n, m), generator=generator, dtype=lap.dtype).to(lap.device)
+        q = torch.from_numpy(threefry.normal(0, (n, m))).to(lap.device, lap.dtype)
     q, _ = torch.linalg.qr(q)
     for _ in range(n_iters):
         q, _ = torch.linalg.qr(a @ (a @ q))

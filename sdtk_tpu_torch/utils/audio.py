@@ -1,16 +1,30 @@
-"""WAV input and output, resampling and segment slicing.
+"""Audio input and output: decode, resample, slice, encode.
 
-A copy of the WAV part of ``sdtk_tpu/utils/audio.py``: RIFF parsed by hand
-(PCM 8/16/24/32-bit and IEEE float 32/64), mixed down to mono, scaled to
-[-1, 1) as the JAX package's decoder does, and resampled with
-``scipy.signal.resample_poly`` when the rate is not the target.  Other
-containers are later work.
+The counterpart of ``sdtk_tpu/utils/audio.py``, with its decoders by
+extension (``_DECODERS``) and its tiers:
+
+- WAV: RIFF parsed by hand (PCM 8/16/24/32-bit and IEEE float 32/64) in
+  NumPy (the JAX package's C++ reader is not built by the port; it gives
+  the same samples);
+- FLAC: first party (``utils/flacio.py``);
+- MPEG audio (.mp3 .mp2 .mpga): the first-party Layer I/II decoder
+  (``utils/mpegaudio.py``), then libmpg123 (``utils/syscodec.py``), then
+  the system AV libraries;
+- every other container (.m4a .aac .mp4 .ogg .opus .wma .webm .mka): the
+  system AV libraries (libavformat, libavcodec, ``utils/avio.py``).
+
+A codec the host lacks raises :class:`AudioFormatError` with the reason,
+which speaker-process records as ``unsupported_format``.  Samples are
+mixed down to mono, scaled to [-1, 1) as the JAX package's decoders do,
+and resampled with ``scipy.signal.resample_poly`` when the rate is not
+the target.
 """
 
 from __future__ import annotations
 
 import struct
 import wave
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from math import gcd
 from pathlib import Path
@@ -33,12 +47,6 @@ class AudioInfo:
 
 class AudioFormatError(ValueError):
     pass
-
-
-def _check_wav(path: Path) -> None:
-    if path.suffix.lower() != ".wav":
-        raise AudioFormatError(f"unsupported container: {path.suffix} — the port reads .wav "
-                               f"only so far")
 
 
 def _decode_wav(path: str | Path) -> tuple[np.ndarray, int]:
@@ -90,29 +98,124 @@ def resample(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
     return resample_poly(x, sr_out // g, sr_in // g).astype(np.float32)
 
 
+def _decode_flac(path: str | Path) -> tuple[np.ndarray, int]:
+    """FLAC file → float32 (frames, channels) and its sample rate."""
+    from .flacio import FlacError, decode
+
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        pcm, sr, bits = decode(data)
+    except FlacError as e:
+        raise AudioFormatError(f"FLAC decode failed for {path}: {e}") from e
+    return pcm.astype(np.float32) / float(1 << (bits - 1)), sr
+
+
+def _decode_mpeg(path: str | Path) -> tuple[np.ndarray, int]:
+    """MPEG audio: the first-party Layer I/II decoder, then libmpg123 for
+    streams outside its scope (Layer III), then the AV libraries.  Raises
+    :class:`AudioFormatError` only when every tier is unable."""
+    from .mpegaudio import UnsupportedFormatError, decode
+
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        pcm, sr = decode(data)
+        return pcm.astype(np.float32)[:, None], sr
+    except UnsupportedFormatError as first_party_err:
+        from . import syscodec
+
+        sys_err: Exception | None = None
+        if syscodec.mpg123_available():
+            try:
+                return syscodec.decode_mpeg(data)
+            except syscodec.SysCodecError as e:
+                sys_err = e  # on to the AV tier
+        try:
+            return _decode_av(path)
+        except AudioFormatError:
+            pass
+        if sys_err is not None:
+            raise AudioFormatError(f"{path}: {first_party_err} (system codec also "
+                                   f"failed: {sys_err})") from sys_err
+        raise AudioFormatError(f"{path}: {first_party_err}") from first_party_err
+
+
+def _decode_av(path: str | Path) -> tuple[np.ndarray, int]:
+    """The system AV libraries (``utils/avio.py``); without them,
+    :class:`AudioFormatError` with the reason."""
+    from . import avio
+
+    if not avio.available():
+        raise AudioFormatError(
+            f"cannot decode {path}: requires the system AV libraries "
+            f"(libavformat/libavcodec) — {avio.disabled_reason()}")
+    try:
+        return avio.decode_file(str(path))
+    except avio.AvError as e:
+        raise AudioFormatError(f"AV decode failed for {path}: {e}") from e
+
+
+# extension → decoder of (float32 (frames, channels), sample rate)
+_DECODERS = {
+    ".wav": _decode_wav,
+    ".flac": _decode_flac,
+    ".mp3": _decode_mpeg,
+    ".mp2": _decode_mpeg,
+    ".mpga": _decode_mpeg,
+    ".m4a": _decode_av,
+    ".aac": _decode_av,
+    ".mp4": _decode_av,
+    ".ogg": _decode_av,
+    ".opus": _decode_av,
+    ".wma": _decode_av,
+    ".webm": _decode_av,
+    ".mka": _decode_av,
+}
+
+
+def _decoder(path: Path):
+    decoder = _DECODERS.get(path.suffix.lower())
+    if decoder is None:
+        raise AudioFormatError(
+            f"unsupported container: {path.suffix} — supported: "
+            f"{', '.join(sorted(_DECODERS))} (first-party + in-process "
+            f"system codecs; no ffmpeg CLI required)")
+    return decoder
+
+
 def load_audio(path: str | Path, target_sr: int = TARGET_SR) -> tuple[np.ndarray, int]:
-    """WAV → mono float32 at ``target_sr`` (0 keeps the file's rate);
-    returns (samples, rate)."""
+    """Decode → mono mixdown → resample to ``target_sr`` (0 keeps the
+    file's rate); returns (float32 samples, rate)."""
     path = Path(path)
-    _check_wav(path)
-    x, sr = _decode_wav(path)
+    x, sr = _decoder(path)(path)
     x = x.mean(axis=1)
     if target_sr and sr != target_sr:
         x, sr = resample(x, sr, target_sr), target_sr
     return np.ascontiguousarray(x, dtype=np.float32), sr
 
 
+def load_audio_batch(paths: list[str | Path], target_sr: int = TARGET_SR, n_threads: int = 0
+                     ) -> list[np.ndarray]:
+    """:func:`load_audio` of every path on a pool of threads (``n_threads``
+    0: one a path, at most 8), in the order given."""
+    if not paths:
+        return []
+    workers = n_threads or min(8, len(paths))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(lambda p: load_audio(p, target_sr)[0], paths))
+
+
 def probe(path: str | Path) -> AudioInfo:
-    """Sample rate, channels, frames, duration and format of a WAV file;
-    any other container raises :class:`AudioFormatError`."""
+    """Sample rate, channels, frames, duration and format of any container
+    :func:`load_audio` reads."""
     path = Path(path)
-    _check_wav(path)
-    x, sr = _decode_wav(path)
-    return AudioInfo(sr, x.shape[1], x.shape[0], x.shape[0] / sr, "wav")
+    x, sr = _decoder(path)(path)
+    return AudioInfo(sr, x.shape[1], x.shape[0], x.shape[0] / sr, path.suffix.lower()[1:])
 
 
 def load_wav(path: str | Path, target_sr: int = TARGET_SR) -> np.ndarray:
-    """PCM or float WAV → float32 mono at ``target_sr``."""
+    """Any container :func:`load_audio` reads → float32 mono at ``target_sr``."""
     return load_audio(path, target_sr)[0]
 
 
@@ -132,3 +235,28 @@ def save_wav(path: str | Path, x: np.ndarray, sr: int = TARGET_SR) -> None:
         w.setsampwidth(2)
         w.setframerate(sr)
         w.writeframes(pcm.tobytes())
+
+
+def save_mp3(path: str | Path, x: np.ndarray, sr: int = TARGET_SR, bitrate_kbps: int = 128) -> None:
+    """float32 [-1, 1] mono → ``.mp3``: MPEG Layer III through libmp3lame
+    where the host has it, else the first-party Layer II encoder."""
+    from . import syscodec
+    from .ioutil import atomic_write_bytes
+
+    if syscodec.lame_available():
+        try:
+            atomic_write_bytes(path, syscodec.encode_mp3(np.asarray(x), sr, bitrate_kbps))
+            return
+        except syscodec.SysCodecError:
+            pass  # on to the first-party encoder
+    from .mpegaudio import encode_layer2
+
+    atomic_write_bytes(path, encode_layer2(np.asarray(x), sr, bitrate_kbps))
+
+
+def save_flac(path: str | Path, x: np.ndarray, sr: int = TARGET_SR) -> None:
+    """float32 [-1, 1] (mono or stereo) → 16-bit FLAC, losslessly."""
+    from .flacio import encode
+    from .ioutil import atomic_write_bytes
+
+    atomic_write_bytes(path, encode(np.asarray(x), sr, 16))

@@ -301,13 +301,40 @@ def test_cli_longform_writes_the_jax_rttm(checkpoints, tmp_path, monkeypatch):
     real_make_mesh = make_mesh
     monkeypatch.setattr("sdtk_tpu.parallel.make_mesh",
                         lambda spec=None, devices=None: real_make_mesh("data=2", jax.devices()[:2]))
+    jax_results = []
+    real_diarize = JaxLongformDiarizer.diarize_waveform
+    monkeypatch.setattr(JaxLongformDiarizer, "diarize_waveform",
+                        lambda self, wav: jax_results.append(real_diarize(self, wav)) or jax_results[-1])
     assert jax_cli.main([*args, "--output", str(tmp_path / "jax.rttm")]) == 0
     payload = {"store": str(tmp_path / "cli-store"),
                "argv": [*args, "--device", "cpu", "--output", str(tmp_path / "port.rttm")]}
     assert workers.run_ranks(2, "cli_rank", payload) == [0, 0]
     want = (tmp_path / "jax.rttm").read_text()
+    got = (tmp_path / "port.rttm").read_text()
     assert want.count("SPEAKER") >= 3
-    assert (tmp_path / "port.rttm").read_text() == want
+    assert got == want, _rttm_mismatch(want, got, jax_results[-1], wav_path, checkpoints[512])
+
+
+def _rttm_mismatch(want: str, got: str, jax_result: dict, wav_path: Path, params_path: str) -> str:
+    """The CLI test's failure text: the RTTMs' diff, then each side's window
+    labels and speaker count (the port's from its 2 ranks run again on the
+    CLI's input and configuration)."""
+    import difflib
+
+    from sdtk_tpu_torch.utils.audio import load_audio
+
+    wav, _ = load_audio(wav_path)
+    starts = {(n, min(n, 17)): np.asarray(jax.random.normal(jax.random.PRNGKey(0), (n, min(n, 17)),
+                                                            jnp.float32))
+              for n in range(16, len(wav) // SR * 4 + 17, 16)}
+    case = (wav, {"window_seconds": 1.5, "hop_seconds": 0.75, "n_speakers": 2}, 512, params_path)
+    port = workers.run_ranks(2, "longform_cases", {"diarize": {"cli": case}, "starts": starts})
+    port = port[0]["diarize"]["cli"]
+    diff = "".join(difflib.unified_diff(want.splitlines(True), got.splitlines(True), "jax.rttm",
+                                        "port.rttm"))
+    return (f"RTTMs differ:\n{diff}\n"
+            f"JAX  n_speakers {jax_result['n_speakers']} labels {jax_result['window_labels']}\n"
+            f"port n_speakers {port['n_speakers']} labels {port['window_labels']}")
 
 
 def test_host_work_shard_splits_as_jax(monkeypatch):
