@@ -118,6 +118,24 @@ any failure raises and exits non-zero:
              codecs) through ``cli.diarize``: the FLAC's labels equal the
              WAV's, the MP2 (and MP3, M4A) give 3 speakers at DER_BAR, K1
              launched on each; ``load_audio_batch`` equals ``load_audio``;
+26. train-vad-step — one step of the VAD trainer (v4 at full width, one
+             batch of 64 windows of 1.5 s from ``make_batch``, one seeded
+             ``VadNet``) on the card (K1, bf16 features) and on the CPU:
+             loss within 1e-3 relative, each gradient and each updated
+             tensor at cosine >= 0.999; 20 steps on that batch (the loss
+             must fall, K1 once a step), step time by CUDA events and by
+             the profiler, peak memory; K1 held at (64, 24 000);
+27. train-vad — ``python -m sdtk_tpu_torch.evals.train_vad`` at the JAX
+             defaults (400 steps of 64, v4) through ``main`` under the
+             profiler: exit 0 (held-out window accuracy >= 0.9), K1 400
+             times, the file read by ``VadScorer`` and by the trained gate
+             on the meeting beside the bundled one; synthesis and step
+             seconds, the device's idle share;
+28. shell — catalog, report, review, samples, segments and llm through
+             ``python -m sdtk_tpu_torch <tool>`` over the process phase's
+             store: a jq query of its 3 recordings, report counts equal to
+             the store's, an approved review segment written as a sample
+             that identify on the card names (K1 and K2 launched);
 
 The kernel phase holds all four kernels (log-mel from the waveform, the
 cosine scores, the fused identify top-k, log-mel from frames) at the
@@ -968,6 +986,32 @@ def meeting_transcripts(ref, seed: int) -> tuple[dict, dict, dict]:
     return {"utterances": utterances}, {"results": words}, truth
 
 
+def scoring_case(q, p_dev, k: int) -> dict:
+    """(W, D) window embeddings ``q`` against the store matrix ``p_dev`` on
+    the card: K2 on the windows bucketed as the dispatcher buckets them, at
+    ``k``, and K3, each against its plain version."""
+    import torch
+
+    from sdtk_tpu_torch.ops import cosine, topk, topk_fused
+
+    q_dev = torch.from_numpy(q).to(p_dev.device)
+    qb = topk.bucket_windows(q_dev).contiguous()
+    s_k, i_k = topk_fused.identify_topk_cuda(qb, p_dev, k)
+    s_p, i_p = topk.identify_topk_plain(qb, p_dev, k)
+    cos_err = float((cosine.cosine_cuda(q_dev, p_dev) - cosine.cosine_plain(q_dev, p_dev))
+                    .abs().max())
+    return {"W": int(q.shape[0]), "W_bucketed": int(qb.shape[0]), "k": k,
+            "dense_route_on_card": q.size * p_dev.shape[0] >= cosine.NUMPY_MAX_WORK,
+            "cosine_max_abs_err": cos_err, "topk_max_abs_err": float((s_k - s_p).abs().max()),
+            "topk_survivors_equal": set(i_k.tolist()) == set(i_p.tolist())}
+
+
+def check_scoring(where: str, c: dict) -> None:
+    if not (c["cosine_max_abs_err"] <= SCORE_TOL and c["topk_max_abs_err"] <= SCORE_TOL
+            and c["topk_survivors_equal"]):
+        raise AssertionError(f"{where}: kernel vs plain {c}")
+
+
 def phase_assign(work: Path, device: str) -> dict:
     """``speaker-assign-gpu`` on the card, through ``cli.assign.main``.  The
     store is the identify phase's (8 192 rows of the tower's width, D =
@@ -989,7 +1033,6 @@ def phase_assign(work: Path, device: str) -> dict:
     from sdtk_tpu_torch.cli import assign as cli_assign
     from sdtk_tpu_torch.cli import detection
     from sdtk_tpu_torch.data.synth import build_meeting, synth_utterance
-    from sdtk_tpu_torch.ops import cosine, topk, topk_fused
     from sdtk_tpu_torch.ops.cosine import score_rows
     from sdtk_tpu_torch.ops.topk import identify_topk
     from sdtk_tpu_torch.store import profiles as P
@@ -1072,17 +1115,7 @@ def phase_assign(work: Path, device: str) -> dict:
         t.append(time.perf_counter())
         split[label] = {"windows": int(q.shape[0]), **dict(zip(
             ("embed", "score_fused", "score_dense"), np.diff(t).tolist()))}
-        q_dev = torch.from_numpy(q).to(device)
-        qb = topk.bucket_windows(q_dev).contiguous()
-        s_k, i_k = topk_fused.identify_topk_cuda(qb, p_dev, k)
-        s_p, i_p = topk.identify_topk_plain(qb, p_dev, k)
-        cos_err = float((cosine.cosine_cuda(q_dev, p_dev) - cosine.cosine_plain(q_dev, p_dev))
-                        .abs().max())
-        checks[label] = {"W": int(q.shape[0]), "W_bucketed": int(qb.shape[0]),
-                         "dense_route_on_card": q.size * n >= cosine.NUMPY_MAX_WORK,
-                         "cosine_max_abs_err": cos_err,
-                         "topk_max_abs_err": float((s_k - s_p).abs().max()),
-                         "topk_survivors_equal": set(i_k.tolist()) == set(i_p.tolist())}
+        checks[label] = scoring_case(q, p_dev, k)
     emit({"phase": "assign", "profiles": n, "dim": int(pm.matrix.shape[1]), "k": k,
           "store_copy_and_enroll_seconds": store_s, "audio_seconds": len(wav) / 16000,
           "labels": {fmt: sorted(tr) for fmt, tr in truth.items()},
@@ -1105,9 +1138,7 @@ def phase_assign(work: Path, device: str) -> dict:
             or names != {"Voice 0", "Voice 1", "Voice 2"}:
         raise AssertionError(f"show rc {rc_show}, apply rc {rc_apply}, names {names}")
     for label, c in checks.items():
-        if not (c["cosine_max_abs_err"] <= SCORE_TOL and c["topk_max_abs_err"] <= SCORE_TOL
-                and c["topk_survivors_equal"]):
-            raise AssertionError(f"assign label {label}: kernel vs plain {c}")
+        check_scoring(f"assign label {label}", c)
     if (launches["log_mel_wave"] <= 0 or by_route["fused"]["identify_topk"] <= 0
             or by_route["dense"]["cosine"] <= 0):
         raise AssertionError(f"a kernel of the assign path was not launched: {by_route}")
@@ -1447,8 +1478,8 @@ def _train_report(phase: str, state, logs: list[str], wall: float, busy_ms) -> d
 
 def _profiled_device_ms(fn):
     """``fn()``'s result and the device time of every kernel and copy it
-    ran (``torch.profiler``), or "not measured" where the trace shows
-    none."""
+    ran (``torch.profiler``, host and device activities, as ``device_ms``
+    traces), or "not measured" where the trace shows none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2056,6 +2087,376 @@ def phase_decode(work: Path, ref) -> dict:
     return total
 
 
+# The VAD trainer (evals/train_vad.py's recipe: v4 at full width, batches of
+# 64 windows of 1.5 s, Adam at 1e-3, positives weighted 2.0).  The card's step
+# against the CPU's from one state and batch: the features differ only by
+# K1's bf16 rounding (<= 0.007 ln), and the step runs in full f32 on both
+# (``train_vad.full_f32``).
+VAD_BATCH = 64
+VAD_LOSS_RTOL = 1e-3
+VAD_GRAD_COS = 0.999  # each gradient tensor against the CPU's
+VAD_PARAM_COS = 0.999  # each updated tensor against the CPU's
+
+
+def phase_train_vad_step(device) -> dict:
+    """One step of the VAD trainer at full width (v4, 82 input channels,
+    32 channels) on one batch of ``make_batch(default_rng(0), 64, 148)``
+    from one seeded ``VadNet`` state, on the card (K1, bf16 features) and
+    on the CPU (K1's plain version): loss within VAD_LOSS_RTOL relative,
+    every gradient tensor at cosine >= VAD_GRAD_COS, every updated tensor
+    at cosine >= VAD_PARAM_COS.  Then 20 steps on that batch on the card
+    (the loss must fall; K1 once a step), the step's time by CUDA events
+    and by the profiler, its host time, the peak memory; then K1 at the
+    path's (64, 24 000) against its plain version.  Returns the path's
+    launch counts (the card's first step and the 20) and the step's device
+    time by the profiler."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch.evals import train_vad as tv
+    from sdtk_tpu_torch.models.vad import VadNet
+    from sdtk_tpu_torch.ops.fbank import FrontendConfig
+
+    fcfg = FrontendConfig()
+    t0 = time.perf_counter()
+    wavs, labels = tv.make_batch(np.random.default_rng(0), VAD_BATCH, fcfg.num_frames(tv.N))
+    synth_s = time.perf_counter() - t0
+    init = VadNet(tv.vad_config("v4", fcfg.n_mels))
+    init.reset_parameters(torch.Generator().manual_seed(0))
+
+    def step(net, opt, dev):
+        return tv.vad_step(net, opt, wavs, labels, fcfg, 2.0, dev)
+
+    runs = {}
+    wrappers = reset_launches()
+    for name, dev in (("cuda", device), ("cpu", torch.device("cpu"))):
+        net = copy.deepcopy(init).to(dev)
+        opt = tv.make_optimizer(net, 1e-3)
+        t0 = time.perf_counter()
+        loss = float(step(net, opt, dev))
+        runs[name] = {"loss": loss, "seconds": time.perf_counter() - t0, "net": net, "opt": opt,
+                      "grads": {n: p.grad.detach().cpu() for n, p in net.named_parameters()},
+                      "params": {n: p.detach().cpu() for n, p in net.named_parameters()}}
+    first_launches = read_launches(wrappers)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    grad_cos = {n: _cos(gpu["grads"][n], cpu["grads"][n]) for n in gpu["grads"]}
+    param_cos = {n: _cos(gpu["params"][n], cpu["params"][n]) for n in gpu["params"]}
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    worst_g, worst_p = min(grad_cos, key=grad_cos.get), min(param_cos, key=param_cos.get)
+
+    net, opt = gpu["net"], gpu["opt"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, marks = [], []
+    for _ in range(20):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses.append(step(net, opt, device))
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    losses = [float(x) for x in losses]
+    step_ms = [a.elapsed_time(b) for a, b in marks]
+    busy = device_ms(lambda: step(net, opt, device), "", reps=5)  # "" matches every kernel
+    t0 = time.perf_counter()
+    step(net, opt, device)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    row = {"phase": "train-vad-step", "arch": "v4", "batch": VAD_BATCH,
+           "params": sum(p.numel() for p in init.parameters()), "synth_seconds": synth_s,
+           "loss_cuda": gpu["loss"], "loss_cpu": cpu["loss"], "loss_rel_diff": loss_rel,
+           "loss_bar": VAD_LOSS_RTOL, "grad_cos": grad_cos, "min_grad_cos": grad_cos[worst_g],
+           "min_grad": worst_g, "grad_cos_bar": VAD_GRAD_COS, "param_cos": param_cos,
+           "min_param_cos": param_cos[worst_p], "min_param": worst_p,
+           "param_cos_bar": VAD_PARAM_COS, "cpu_step_seconds": cpu["seconds"],
+           "first_cuda_step_seconds": gpu["seconds"], "losses_20": losses,
+           "first5_mean": statistics.mean(losses[:5]), "last5_mean": statistics.mean(losses[-5:]),
+           "step_ms": step_ms, "step_ms_median": statistics.median(step_ms[5:]),
+           "step_device_busy_ms": busy, "step_host_ms_synced": host_ms,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "tf32": "off inside the step (train_vad.full_f32)",
+           "first_step_launches": first_launches, "launches": launches}
+    emit(row)
+    if not loss_rel <= VAD_LOSS_RTOL:
+        raise AssertionError(f"train-vad-step: card loss {gpu['loss']} vs CPU {cpu['loss']}")
+    if not grad_cos[worst_g] >= VAD_GRAD_COS:
+        raise AssertionError(f"train-vad-step: {worst_g}'s gradient at cosine {grad_cos[worst_g]}")
+    if not param_cos[worst_p] >= VAD_PARAM_COS:
+        raise AssertionError(f"train-vad-step: {worst_p} at cosine {param_cos[worst_p]}")
+    if not row["last5_mean"] < row["first5_mean"]:
+        raise AssertionError(f"train-vad-step: the loss did not fall on a fixed batch: {losses}")
+    if first_launches["log_mel_wave"] != 1 or launches["log_mel_wave"] != 21 \
+            or any(v for k, v in launches.items() if k != "log_mel_wave"):
+        raise AssertionError(f"train-vad-step: launches {first_launches}, then {launches}; "
+                             "expected log_mel_wave once a step and no other kernel")
+    k1_case("bf16-ln", fcfg, wavs, np.full(VAD_BATCH, tv.N, np.int64), device,
+            config="train-vad-step path, 64 windows of 1.5 s")
+    return launches, busy
+
+
+VAD_SMOKE_STEPS = 100  # the recipe's 400 cut: its host synthesis is 125-155 s on the H100's host
+
+
+def phase_train_vad(work: Path, wav, step_device_ms) -> dict:
+    """``python -m sdtk_tpu_torch.evals.train_vad`` on the card at the JAX
+    defaults (batch 64, v4) but VAD_SMOKE_STEPS steps, through ``main``
+    under the profiler, ``--out`` in the smoke directory: the loss falls
+    (the first logged step's against the final), K1 once a step, the file
+    read by the port's ``VadScorer`` and by ``pipeline.vad.trained_vad_mask``
+    on the 61.3 s meeting.  Printed without a bar: the exit code and the
+    held-out window accuracy (the script's own bar, 0.9, is the full
+    recipe's), the share of the meeting's windows that the trained
+    gate and the bundled ``models/vad.msgpack`` keep alike, synthesis and
+    step seconds, and the device's idle share of the loop by the profile
+    and by ``step_device_ms`` (train-vad-step's step on the device) times
+    the steps.  Returns the path's launch counts."""
+    import numpy as np
+
+    from sdtk_tpu_torch.evals import train_vad as tv
+    from sdtk_tpu_torch.models.vad import VadScorer, default_checkpoint
+    from sdtk_tpu_torch.pipeline.diarize import DiarizeConfig
+    from sdtk_tpu_torch.pipeline.vad import trained_vad_mask
+
+    out = work / "vad-trained.msgpack"
+    out.unlink(missing_ok=True)
+    timings: dict = {}
+    buf, logs = io.StringIO(), io.StringIO()
+
+    steps = VAD_SMOKE_STEPS
+
+    def call():
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(logs):
+            return tv.main(["--device", "cuda", "--out", str(out), "--steps", str(steps)],
+                           timings=timings)
+
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    rc, busy_ms = _profiled_device_ms(call)
+    wall = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    scorer = VadScorer(out)
+    dcfg = DiarizeConfig()
+    masks = {}
+    for name, path in (("trained", out), ("bundled", default_checkpoint())):
+        starts, keep = trained_vad_mask(wav, 16000, dcfg.window_seconds, dcfg.hop_seconds,
+                                        params_path=str(path))
+        masks[name] = keep
+    alike = float(np.mean(masks["trained"] == masks["bundled"]))
+    log = [ln for ln in logs.getvalue().splitlines() if ln.startswith("step ")]
+    first_loss = float(log[0].rsplit(" ", 1)[1]) if log else float("nan")
+    loop_s = timings["loop_s"]
+    by_steps = step_device_ms * steps if isinstance(step_device_ms, float) else "not measured"
+    row = {"phase": "train-vad", "steps": steps, "steps_cut_from": 400, "rc": rc,
+           "result": result, "first_logged_loss": first_loss, "wall_seconds": wall,
+           "synth_seconds": timings["synth_s"], "step_seconds": timings["step_s"],
+           "loop_seconds": loop_s, "synth_s_per_batch": timings["synth_s"] / steps,
+           "device_busy_ms_profiled": busy_ms, "device_busy_ms_by_step_device_time": by_steps,
+           "profiled_over_step_device_time": (busy_ms / by_steps if isinstance(busy_ms, float)
+                                              and isinstance(by_steps, float) else "not measured"),
+           "device_idle_share_of_loop": {
+               k: 1.0 - v / 1e3 / loop_s if isinstance(v, float) else "not measured"
+               for k, v in (("by_profile", busy_ms), ("by_step_device_time", by_steps))},
+           "log": log,
+           "scorer": {"deep": scorer.cfg.deep, "extra_feats": scorer.cfg.extra_feats},
+           "meeting_windows": int(len(starts)),
+           "kept_share": {k: float(v.mean()) for k, v in masks.items()},
+           "windows_alike_with_bundled": alike, "launches": launches}
+    emit(row)
+    if not result["final_loss"] < first_loss:
+        raise AssertionError(f"train-vad: the loss did not fall: {log}, "
+                             f"final {result['final_loss']}")
+    if launches["log_mel_wave"] != steps or any(v for k, v in launches.items()
+                                               if k != "log_mel_wave"):
+        raise AssertionError(f"train-vad: launches {launches}, expected log_mel_wave {steps}")
+    if not (scorer.cfg.deep and scorer.cfg.extra_feats) or result["out"] != str(out):
+        raise AssertionError("train-vad: the written file is not the v4 graph")
+    if not len(masks["trained"]) == len(masks["bundled"]) > 0:
+        raise AssertionError("train-vad: the trained gate scored no window of the meeting")
+    return launches
+
+
+def phase_shell(work: Path, device: str) -> dict:
+    """The host shell over the process phase's store (its 3 meetings; the
+    assign store's 8 195 profiles), each command through ``python -m
+    sdtk_tpu_torch <tool>`` (``__main__.main``, in this process): ``catalog``
+    list / status / show / list-contexts, and a ``query`` whose filter
+    selects the entries under the process directory, which must print
+    those 3 and no other; ``report`` status, speakers, coverage and
+    confidence as JSON, their counts equal to what the store holds;
+    ``review review <b3sum> --simple`` approving the first segment and
+    quitting: one new sample under that speaker, listed by ``samples
+    list``, reviewed in its metadata, an MP3 that decodes; ``detection
+    identify`` of that MP3 on the card naming the approved speaker first
+    (K1 launched, K2 on the fused route); ``samples extract`` of that
+    speaker's turns and ``segments`` on the meeting's transcript; ``llm
+    analyze`` and ``detect-names`` with the offline pattern provider.  Then
+    identify's K1 input and its K2 scoring (the sample's windows against
+    the store) against their plain versions.  Returns the path's launch
+    counts."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch import __main__ as umbrella
+    from sdtk_tpu_torch import config
+    from sdtk_tpu_torch.pipeline import report as R
+    from sdtk_tpu_torch.pipeline import review as RV
+    from sdtk_tpu_torch.pipeline.identify import _backend as identify_backend
+    from sdtk_tpu_torch.store import assignments, catalog
+    from sdtk_tpu_torch.store import profiles as P
+    from sdtk_tpu_torch.utils.audio import load_audio
+    from sdtk_tpu_torch.utils.ioutil import load_yaml
+
+    src = work / "process-in"
+    for var, name in (("SPEAKER_REVIEW_SESSION_DIR", "review-session"),
+                      ("SPEAKER_LLM_CACHE_DIR", "llm-cache")):
+        shutil.rmtree(work / name, ignore_errors=True)
+        os.environ[var] = str(work / name)
+    seconds: dict = {}
+
+    def run(*argv: str, stdin: str = "") -> str:
+        out, err = io.StringIO(), io.StringIO()
+        real, sys.stdin = sys.stdin, io.StringIO(stdin)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = umbrella.main(list(argv))
+        finally:
+            sys.stdin = real
+        seconds[argv[0] if argv[0] == "segments" else " ".join(argv[:2])] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"shell: {' '.join(argv)} returned {rc}: {err.getvalue()[-2000:]}")
+        return out.getvalue()
+
+    wrappers = reset_launches()
+    start = time.perf_counter()
+    listed = json.loads(run("catalog", "list", "--format", "json"))
+    ours = {r["b3sum"]: r for r in listed if Path(r["path"]).parent == src}
+    by_name = {Path(r["path"]).name: b3 for b3, r in ours.items()}
+    b3 = by_name.get("meeting-1.wav", "")
+    status = run("catalog", "status", b3).strip()
+    shown = json.loads(run("catalog", "show", b3, "--format", "json"))
+    shown_text = run("catalog", "show", b3)
+    contexts = run("catalog", "list-contexts")
+    prefix = json.dumps(str(src) + "/")
+    queried = run("catalog", "query",
+                  f".[] | select(.recording.path | startswith({prefix})) | .recording.b3sum")
+    queried = sorted(json.loads(line) for line in queried.splitlines())
+
+    reports = {name: json.loads(run("report", name, "--format", "json"))
+               for name in ("status", "speakers", "coverage", "confidence")}
+    entries = catalog.list_entries()
+    n_profiles = len(list(config.db_dir().glob("*.json")))
+    low = reports["confidence"]
+    # recordings whose assignment file holds a mapping below the threshold
+    below = sum(any(R.CONFIDENCE_MAP.get(m.get("confidence", "low"), 0) < low["threshold"]
+                    for m in (load_yaml(f).get("mappings") or {}).values())
+                for f in config.assignments_dir().glob("*.yaml"))
+    counts = {"recordings": (reports["status"]["recordings"]["total"], len(entries)),
+              "speakers": (reports["status"]["speakers"]["total"], n_profiles),
+              "speakers_report": (reports["speakers"]["total"], n_profiles),
+              "speakers_listed": (len(reports["speakers"]["speakers"]), n_profiles),
+              "coverage": (sum(c["total"] for c in reports["coverage"].values()), len(entries)),
+              "confidence": (low["count"], below)}
+
+    samples_root = config.samples_dir()
+    before = set(samples_root.rglob("*.meta.yaml"))
+    review_out = run("review", "review", b3, "--simple", stdin="a\nq\n")
+    session = RV.load_session()
+    seg = session.segments[0]
+    spk = seg.speaker_id
+    new = sorted(set(samples_root.rglob("*.meta.yaml")) - before)
+    meta = load_yaml(new[0]) if len(new) == 1 else {}
+    mp3 = new[0].with_name(new[0].name.replace(".meta.yaml", ".mp3")) if new else None
+    sample_list = json.loads(run("samples", "list", str(spk), "--format", "json"))
+    x, sr = load_audio(mp3) if mp3 else (np.zeros(0, np.float32), 0)
+
+    at = read_launches(wrappers)
+    ident = json.loads(run("detection", "identify", str(mp3), "--device", device,
+                           "--format", "json"))
+    ident_launches = {k: v - at[k] for k, v in read_launches(wrappers).items()}
+
+    transcript = shown["transcriptions"][0]["path"]
+    mapping = assignments.load_assignments(b3)["mappings"]
+    label = next(lab for lab, m in mapping.items() if m.get("speaker_id") == spk)
+    extracted = run("samples", "extract", str(spk), shown["recording"]["path"],
+                    "--transcript", transcript, "-l", label, "--max-segments", "2")
+    speakers = run("segments", transcript).split()
+    csv = run("segments", transcript, label, "--format", "csv")
+    analysis = json.loads(run("llm", "analyze", transcript, "--provider", "pattern"))
+    names = json.loads(run("llm", "detect-names", transcript, "--provider", "pattern"))
+    launches = read_launches(wrappers)
+
+    # identify's kernels against their plain versions at its own shapes: K1
+    # on the first batch identify built from the sample (max_windows rows,
+    # the pad rows of length 0), K2 on the sample's windows against the
+    # store matrix identify scored, at its k
+    backend = identify_backend(None, device)
+    eng = backend.engine
+    wav = backend._load(mp3, None)
+    all_w, all_l = eng._window_all(np.asarray(wav, np.float32))
+    n_win = min(eng.max_windows, len(all_w))
+    x_k1 = np.zeros((eng.max_windows, all_w.shape[1]), np.float32)
+    len_k1 = np.zeros(eng.max_windows, np.int64)
+    x_k1[:n_win], len_k1[:n_win] = all_w[:n_win], all_l[:n_win]
+    k1_row = k1_case("bf16-ln", eng.cfg, x_k1, len_k1, device,
+                     config="shell path, identify of the approved sample")
+    pm = P.ProfileMatrix.build(backend.name, speakers=[
+        s for s in P.list_all_speakers() if s.get("embeddings", {}).get(backend.name)])
+    k = min(64 * max(Counter(r["speaker_id"] for r in pm.rows).values()), len(pm))
+    scoring = scoring_case(np.asarray(backend.embed_windows(wav), np.float32),
+                           torch.from_numpy(pm.matrix).to(device), k)
+    row = {"phase": "shell", "recordings_in_dir": sorted(by_name), "status": status,
+           "show_text_lines": len(shown_text.splitlines()),
+           "contexts": contexts.strip().splitlines(),
+           "query_b3sums": len(queried), "counts": counts, "profiles": n_profiles,
+           "review": {"recording": b3, "segments": len(session.segments),
+                      "first": {"label": seg.speaker_label, "speaker_id": spk,
+                                "start": seg.start, "end": seg.end, "decision": seg.decision},
+                      "new_samples": [str(p.relative_to(samples_root)) for p in new],
+                      "review_status": meta.get("review", {}).get("status"),
+                      "mp3_bytes": mp3.stat().st_size if mp3 else 0,
+                      "mp3_seconds": len(x) / sr if sr else 0.0,
+                      "listed": len(sample_list), "lines": len(review_out.splitlines())},
+           "identify": {"top": [(r["speaker_id"], r["score"]) for r in ident[:3]],
+                        "launches": ident_launches, "profiles_rows": len(pm),
+                        "k1_shape": k1_row["shape"], "k1_max_abs_err": k1_row["max_abs_err"],
+                        "kernel_vs_plain": scoring, "tol": SCORE_TOL},
+           "extract": extracted.strip(), "segments_speakers": speakers,
+           "segments_csv_rows": len(csv.splitlines()) - 1,
+           "llm": {"detections": len(analysis.get("detections", [])), "names": names},
+           "seconds": seconds,
+           "wall_seconds": time.perf_counter() - start, "launches": launches}
+    emit(row)
+    if sorted(by_name) != ["meeting-1.wav", "meeting-2.wav", "meeting-3.wav"]:
+        raise AssertionError(f"shell: catalog list shows {sorted(by_name)} in {src}")
+    if queried != sorted(ours) or status not in catalog.STATUS_VALUES:
+        raise AssertionError(f"shell: query gave {queried}, the directory holds {sorted(ours)}")
+    for key, (got, want) in counts.items():
+        if got != want:
+            raise AssertionError(f"shell: report {key} {got}, the store holds {want}")
+    if not (len(new) == 1 and new[0].parent.name == spk and seg.decision == "approved"
+            and meta.get("review", {}).get("status") == "reviewed"):
+        raise AssertionError(f"shell: review wrote {new} for {spk}")
+    if not any(m.get("sample_id") == meta["sample_id"] for m in sample_list):
+        raise AssertionError("shell: samples list does not show the approved sample")
+    if not (len(x) > 0 and sr == 16000 and np.isfinite(x).all()):
+        raise AssertionError(f"shell: the sample's MP3 does not decode ({len(x)} samples, {sr})")
+    if not ident or ident[0]["speaker_id"] != spk:
+        raise AssertionError(f"shell: identify named {row['identify']['top']}, approved {spk}")
+    if ident_launches["log_mel_wave"] <= 0 or ident_launches["identify_topk"] <= 0:
+        raise AssertionError(f"shell: identify launched {ident_launches}; expected K1 and K2")
+    check_scoring("shell identify", scoring)
+    if "Extracted" not in extracted or label not in speakers or len(csv.splitlines()) < 2:
+        raise AssertionError(f"shell: extract {extracted!r}, segments {speakers}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "sdtk_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -2170,6 +2571,9 @@ def main() -> int:
     path_launches["calibrate"] = phase_calibrate(out_dir, device)
     path_launches["heldout-der"] = phase_heldout_der()
     path_launches["decode"] = phase_decode(out_dir, ref)
+    path_launches["train-vad-step"], vad_step_device_ms = phase_train_vad_step(device)
+    path_launches["train-vad"] = phase_train_vad(out_dir, wav, vad_step_device_ms)
+    path_launches["shell"] = phase_shell(out_dir, "cuda")
 
     for row in kernel_rows:
         if row["path"] is not None:

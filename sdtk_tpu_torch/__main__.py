@@ -1,6 +1,7 @@
 """Umbrella dispatcher: ``python -m sdtk_tpu_torch <tool> [...]``.
 
-Tools ported so far: detection, diarize, assign, process, train.
+Tools: detection, catalog, samples, segments, assign, report, process,
+review, llm, diarize, train — the JAX package's.
 """
 
 from __future__ import annotations
@@ -10,9 +11,15 @@ import sys
 
 TOOLS = {
     "detection": "sdtk_tpu_torch.cli.detection",
-    "diarize": "sdtk_tpu_torch.cli.diarize",
+    "catalog": "sdtk_tpu_torch.cli.catalog",
+    "samples": "sdtk_tpu_torch.cli.samples",
+    "segments": "sdtk_tpu_torch.cli.segments",
     "assign": "sdtk_tpu_torch.cli.assign",
+    "report": "sdtk_tpu_torch.cli.report",
     "process": "sdtk_tpu_torch.cli.process",
+    "review": "sdtk_tpu_torch.cli.review",
+    "llm": "sdtk_tpu_torch.cli.llm",
+    "diarize": "sdtk_tpu_torch.cli.diarize",
     "train": "sdtk_tpu_torch.training",
 }
 

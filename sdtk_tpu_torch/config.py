@@ -6,6 +6,8 @@
 - ``SPEAKER_DETECTION_BACKEND`` default embedding backend name (``gpu``)
 - ``SPEAKER_DETECTION_DEBUG``   debug dumps
 - ``SPEAKER_LLM_CACHE_DIR``     LLM analysis cache
+- ``SPEAKER_REVIEW_SESSION_DIR`` review session (else ``$XDG_CACHE_HOME``)
+- ``SPEAKER_REVIEW_PLAYER``     audio player for the review TUI
 - ``SDTK_MODEL_DIR``, ``SDTK_MODEL_PATH``  checkpoints
 """
 
@@ -61,6 +63,18 @@ def queue_path() -> Path:
 
 def llm_cache_dir() -> Path:
     return Path(os.environ.get("SPEAKER_LLM_CACHE_DIR", os.path.expanduser("~/.cache/speaker-llm")))
+
+
+def review_session_dir() -> Path:
+    """$SPEAKER_REVIEW_SESSION_DIR > $XDG_CACHE_HOME/speaker-review >
+    ~/.cache/speaker-review."""
+    explicit = os.environ.get("SPEAKER_REVIEW_SESSION_DIR")
+    if explicit:
+        return Path(explicit)
+    xdg = os.environ.get("XDG_CACHE_HOME")
+    if xdg:
+        return Path(xdg) / "speaker-review"
+    return Path(os.path.expanduser("~/.cache/speaker-review"))
 
 
 def default_backend() -> str:

@@ -151,17 +151,23 @@ def _masked_mean_std(x: torch.Tensor, m: torch.Tensor, eps: float = 1e-5
 _TRUNC_STD = 0.87962566103423978
 
 
-def random_init(model: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator`` with flax's default law: kernels
+@torch.no_grad()
+def lecun_init_(mod: nn.Module, generator: torch.Generator) -> None:
+    """flax's default law for a conv or Dense module, in place: the kernel
     from ``lecun_normal`` (a unit normal truncated to (−2, 2), scaled to
-    variance 1/fan_in), zero biases, identity BatchNorm."""
+    variance 1/fan_in), a zero bias."""
+    w = mod.weight
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    w.mul_(1.0 / (w[0].numel() ** 0.5 * _TRUNC_STD))
+    mod.bias.zero_()
+
+
+def random_init(model: nn.Module, generator: torch.Generator) -> None:
+    """Random weights from ``generator`` with flax's default law
+    (:func:`lecun_init_` for every conv and Dense), identity BatchNorm."""
     for mod in model.modules():
         if isinstance(mod, (Conv, Dense)):
-            w = mod.weight
-            with torch.no_grad():
-                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-                w.mul_(1.0 / (w[0].numel() ** 0.5 * _TRUNC_STD))
-                mod.bias.zero_()
+            lecun_init_(mod, generator)
 
 
 class TdnnBlock(nn.Module):

@@ -1,11 +1,16 @@
-"""Trained frame-level voice activity detection — serving inference.
+"""Trained frame-level voice activity detection.
 
-A NumPy copy of ``sdtk_tpu/models/vad.py:VadScorer`` (identical
-numerics): two or three dilated 1-D convs + LayerNorm (ε = 1e-6) on
-per-window-CMN'd log-mel, a per-frame speech logit.  The model has ~23k
-parameters and gates windows on the host before the embedding program,
-so it stays on the host here too.  The checkpoint is read with the
-port's flax-msgpack reader.
+Two faces, one parameter set, as in ``sdtk_tpu/models/vad.py``:
+
+- :class:`VadNet` — the torch module for training
+  (``evals/train_vad.py``): two or three dilated 1-D convs + LayerNorm on
+  per-window-CMN'd log-mel, a per-frame speech logit; the counterpart of
+  the flax ``VadNet``.  :func:`save_params` writes its weights as the flax
+  msgpack the JAX trainer writes, byte for byte.
+- :class:`VadScorer` — a NumPy copy of the JAX ``VadScorer`` (identical
+  numerics) for serving.  The model has ~23k parameters and gates windows
+  on the host before the embedding program, so it stays on the host here
+  too.  The checkpoint is read with the port's flax-msgpack reader.
 """
 
 from __future__ import annotations
@@ -14,9 +19,12 @@ from dataclasses import dataclass, replace
 from pathlib import Path
 
 import numpy as np
+import torch
+from torch import nn
 
 from ..config import repo_models_dir
-from ..utils.checkpoint import read_msgpack
+from ..utils.checkpoint import read_msgpack, vad_jax_tree, write_msgpack
+from .ecapa import lecun_init_
 
 
 @dataclass(frozen=True)
@@ -42,6 +50,83 @@ def _derived_channels_np(x: np.ndarray) -> np.ndarray:
     d = np.mean(np.abs(np.diff(x, axis=0)), axis=-1)
     flux = np.concatenate([d[:1], d]) / _FLUX_SCALE
     return np.stack([flat, flux], axis=-1).astype(np.float32)
+
+
+def derived_channels(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, M) log-mel → (B, T, M + 2): [flatness, flux] appended, the
+    flax module's formula (log(GM/AM) over mel bands, mean-shifted; mean
+    |Δ| between frames, the first frame's repeated)."""
+    m = x.mean(dim=-1)
+    flat = -torch.log(torch.exp(x - m[..., None]).mean(dim=-1) + 1e-8) / _FLATNESS_SCALE
+    d = (x[:, 1:] - x[:, :-1]).abs().mean(dim=-1)
+    flux = torch.cat([d[:, :1], d], dim=1) / _FLUX_SCALE
+    return torch.cat([x, flat[..., None], flux[..., None]], dim=-1)
+
+
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm`` over the last axis: ε = 1e-6, the variance
+    as max(E[x²] − E[x]², 0), then (x − μ)·(rsqrt(var + ε)·scale) + bias.
+    ``weight`` is flax's ``scale``."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mu = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+        return (x - mu) * (torch.rsqrt(var + 1e-6) * self.weight) + self.bias
+
+
+class VadNet(nn.Module):
+    """(B, T, n_mels) log-mel (per-window CMN) → (B, T) speech logits.
+
+    conv1 (k 5) → ReLU → ln1 → conv2 (k 3, dilation 2) → ReLU → ln2 →
+    [conv3 (k 3, dilation 8) → ReLU → ln3] → out (Dense 1), every conv
+    zero-padded SAME ((k − 1)/2 · dilation a side).  ``cfg.extra_feats``
+    appends the derived [flatness, flux] channels first; ``cfg.deep``
+    adds conv3."""
+
+    def __init__(self, cfg: VadConfig = VadConfig()):
+        super().__init__()
+        self.cfg = cfg
+        c, cin = cfg.channels, cfg.n_mels + (2 if cfg.extra_feats else 0)
+
+        def conv(i: int, k: int, dilation: int = 1) -> nn.Conv1d:
+            return nn.Conv1d(i, c, k, padding=(k - 1) // 2 * dilation, dilation=dilation)
+
+        self.conv1, self.ln1 = conv(cin, cfg.kernel), LayerNorm(c)
+        self.conv2, self.ln2 = conv(c, 3, cfg.dilation), LayerNorm(c)
+        if cfg.deep:
+            self.conv3, self.ln3 = conv(c, 3, cfg.dilation3), LayerNorm(c)
+        self.out = nn.Linear(c, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's default law from ``generator``: ``lecun_normal`` conv and
+        Dense kernels, zero biases, identity LayerNorms."""
+        for mod in self.modules():
+            if isinstance(mod, (nn.Conv1d, nn.Linear)):
+                lecun_init_(mod, generator)
+            elif isinstance(mod, LayerNorm):
+                nn.init.ones_(mod.weight)
+                nn.init.zeros_(mod.bias)
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        x = derived_channels(feats) if self.cfg.extra_feats else feats
+        layers = [(self.conv1, self.ln1), (self.conv2, self.ln2)]
+        if self.cfg.deep:
+            layers.append((self.conv3, self.ln3))
+        for conv, ln in layers:  # the convs take (B, C, T)
+            x = ln(torch.relu(conv(x.transpose(1, 2))).transpose(1, 2))
+        return self.out(x).squeeze(-1)
+
+
+def save_params(model: VadNet, path: str | Path) -> None:
+    """Write ``model``'s weights as the flax variables ``{"params": ...}``
+    in flax msgpack (the bytes ``flax.serialization.to_bytes`` writes for
+    the JAX trainer's tree), atomically."""
+    write_msgpack(path, vad_jax_tree(model.state_dict()))
 
 
 def default_checkpoint() -> Path:

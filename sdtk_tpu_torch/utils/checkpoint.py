@@ -9,9 +9,9 @@ map.  :func:`read_msgpack` decodes all of that with plain ``msgpack``
 into nested dicts of numpy arrays — the same tree as
 ``flax.serialization.msgpack_restore``; :func:`write_msgpack` is its
 inverse and writes the bytes ``flax.serialization.msgpack_serialize``
-writes.  The converters carry a tower's weights both ways: flax
-variables → the port's state dict (``ecapa_state_dict``), and back
-(``ecapa_jax_tree``).
+writes.  The converters carry a model's weights both ways: flax
+variables → the port's state dict (``ecapa_state_dict``,
+``vad_state_dict``), and back (``ecapa_jax_tree``, ``vad_jax_tree``).
 """
 
 from __future__ import annotations
@@ -166,21 +166,20 @@ def _nest(flat: dict[str, np.ndarray]) -> dict:
 
 def ecapa_jax_tree(state_dict: dict[str, torch.Tensor]) -> dict:
     """The port's ``EcapaTdnn.state_dict()`` → JAX ECAPA variables
-    ``{"params": ..., "batch_stats": ...}`` (float32 numpy leaves), the
-    inverse of :func:`ecapa_state_dict`: Conv weights ``(out, in, k)`` →
-    kernels ``(k, in, out)``, Dense ``(out, in)`` → ``(in, out)``,
-    BatchNorm ``weight`` → ``scale`` and its running statistics →
-    ``batch_stats`` ``mean``/``var``."""
-    bn_mods = {k.rpartition(".")[0] for k in state_dict if k.endswith(".running_mean")}
+    ``{"params": ..., "batch_stats": ...}`` (float32 numpy leaves, copies,
+    keys sorted at every level), the inverse of :func:`ecapa_state_dict`:
+    Conv weights ``(out, in, k)`` → kernels ``(k, in, out)``, Dense ``(out,
+    in)`` → ``(in, out)``, a norm's (1-D) ``weight`` → ``scale``, and
+    BatchNorm's running statistics → ``batch_stats`` ``mean``/``var``."""
     params: dict[str, np.ndarray] = {}
     stats: dict[str, np.ndarray] = {}
     for key, t in state_dict.items():
         mod, _, leaf = key.rpartition(".")
-        a = t.detach().to("cpu", torch.float32).numpy()
+        a = t.detach().to("cpu", torch.float32).numpy().copy()  # no view of a live parameter
         if leaf in ("running_mean", "running_var"):
-            stats[f"{mod}.{leaf[len('running_'):]}"] = np.ascontiguousarray(a)
+            stats[f"{mod}.{leaf[len('running_'):]}"] = a
             continue
-        if leaf == "weight" and mod in bn_mods:
+        if leaf == "weight" and a.ndim == 1:
             leaf = "scale"
         elif leaf == "weight":
             a, leaf = (a.transpose(2, 1, 0) if a.ndim == 3 else a.T), "kernel"
@@ -192,3 +191,20 @@ def xvector_jax_tree(state_dict: dict[str, torch.Tensor]) -> dict:
     """The port's ``XVector.state_dict()`` → JAX x-vector variables, the
     inverse of :func:`xvector_state_dict` (ECAPA's conversion)."""
     return ecapa_jax_tree(state_dict)
+
+
+def vad_state_dict(jax_tree: dict) -> dict[str, torch.Tensor]:
+    """JAX VAD variables ``{"params": ...}`` → the port's
+    ``VadNet.state_dict()``: conv kernels (k, in, out) → ``Conv1d`` weights
+    (out, in, k), the Dense ``out`` kernel (32, 1) → ``Linear`` (1, 32),
+    LayerNorm ``scale`` → ``weight`` (ECAPA's conversion, without
+    BatchNorm statistics)."""
+    return ecapa_state_dict({"params": jax_tree["params"]})
+
+
+def vad_jax_tree(state_dict: dict[str, torch.Tensor]) -> dict:
+    """The port's ``VadNet.state_dict()`` → JAX VAD variables ``{"params":
+    ...}``, the inverse of :func:`vad_state_dict` (ECAPA's conversion: a
+    LayerNorm ``weight`` → ``scale``; keys sorted at every level, as in the
+    JAX trainer's tree after an optax update)."""
+    return {"params": ecapa_jax_tree(state_dict)["params"]}
