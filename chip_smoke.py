@@ -135,7 +135,26 @@ any failure raises and exits non-zero:
              ``python -m sdtk_tpu_torch <tool>`` over the process phase's
              store: a jq query of its 3 recordings, report counts equal to
              the store's, an approved review segment written as a sample
-             that identify on the card names (K1 and K2 launched);
+             that identify on the card names (K1 and K2 launched); then
+             ``detection`` validate (no issues), export in both formats
+             (every profile), tag, update, check-validity and backends
+             (``fake``, ``gpu`` and ``speechmatics`` listed);
+29. tower-conformer — ``GpuBackend(model="conformer")`` at full width (dim
+             256) from a seeded flax-msgpack file: 8 windows of 3 s on the
+             card (bf16) against f32 on the CPU by cosine, mask invariance
+             on the card in f32, ms per 128-window chunk, and
+             ``cli.diarize`` under ``SDTK_BACKEND_TOWER=conformer`` (exit 0,
+             K1 launched; untrained weights, so no DER bar);
+30. train-conformer — the trainer's recipe with ``model_name="conformer"``:
+             one step on the card against the CPU (loss and all gradients at
+             train-step's bars), 10 steps on one batch (step ms by CUDA
+             events and by the profiler, peak memory), then 2 steps of
+             ``training.train`` (K1 twice) whose file loads through
+             ``SDTK_BACKEND_TOWER=conformer``;
+31. conformer-sp — ``ops.ringattn.conformer_sp_embed`` in a one-rank NCCL
+             group on K1's features of the phase-5 meeting against the dense
+             module on the card, both f32, at rtol = atol = 2e-4; wall ms and
+             peak memory of each; K1 held at the path's (1, N) shape;
 
 The kernel phase holds all four kernels (log-mel from the waveform, the
 cosine scores, the fused identify top-k, log-mel from frames) at the
@@ -2390,6 +2409,16 @@ def phase_shell(work: Path, device: str) -> dict:
     csv = run("segments", transcript, label, "--format", "csv")
     analysis = json.loads(run("llm", "analyze", transcript, "--provider", "pattern"))
     names = json.loads(run("llm", "detect-names", transcript, "--provider", "pattern"))
+    # the detection tool's profile commands over the same store
+    validated = run("detection", "validate").strip()
+    exported = json.loads(run("detection", "export"))
+    exported_sm = json.loads(run("detection", "export", "--format", "speechmatics"))
+    tags = run("detection", "tag", str(spk), "--add", "smoke").strip()
+    run("detection", "update", str(spk), "--description", "approved in review",
+        "--metadata", "source=chip_smoke")
+    updated = json.loads(run("detection", "show", str(spk)))
+    validity = run("detection", "check-validity", str(spk), "-v", "--device", device)
+    listed_backends = run("detection", "backends").split()
     launches = read_launches(wrappers)
 
     # identify's kernels against their plain versions at its own shapes: K1
@@ -2430,6 +2459,11 @@ def phase_shell(work: Path, device: str) -> dict:
            "extract": extracted.strip(), "segments_speakers": speakers,
            "segments_csv_rows": len(csv.splitlines()) - 1,
            "llm": {"detections": len(analysis.get("detections", [])), "names": names},
+           "detection": {"validate": validated, "export_speakers": len(exported["speakers"]),
+                         "export_speechmatics_speakers": len(exported_sm["speakers"]),
+                         "tags": tags, "description": updated.get("description"),
+                         "check_validity": validity.strip().splitlines()[-3:],
+                         "backends": listed_backends},
            "seconds": seconds,
            "wall_seconds": time.perf_counter() - start, "launches": launches}
     emit(row)
@@ -2454,6 +2488,268 @@ def phase_shell(work: Path, device: str) -> dict:
     check_scoring("shell identify", scoring)
     if "Extracted" not in extracted or label not in speakers or len(csv.splitlines()) < 2:
         raise AssertionError(f"shell: extract {extracted!r}, segments {speakers}")
+    if validated != "All files valid.":
+        raise AssertionError(f"shell: detection validate found issues: {validated[:2000]}")
+    if not (len(exported["speakers"]) == len(exported_sm["speakers"]) == n_profiles
+            and exported["context"] == "default"):
+        raise AssertionError(f"shell: export listed {len(exported['speakers'])} and "
+                             f"{len(exported_sm['speakers'])} of {n_profiles} speakers")
+    if "smoke" not in tags.split(",") or updated.get("description") != "approved in review" \
+            or updated.get("metadata", {}).get("source") != "chip_smoke":
+        raise AssertionError(f"shell: tag gave {tags!r}, update gave {updated.get('metadata')}")
+    if "Checked" not in validity or "INVALIDATED" in validity:
+        raise AssertionError(f"shell: check-validity printed {validity!r}")
+    if not {"fake", "gpu", "speechmatics"} <= set(listed_backends):
+        raise AssertionError(f"shell: backends listed {listed_backends}")
+    return launches
+
+
+CONFORMER_SEED = 13  # the seeded full-width Conformer of the three Conformer phases
+# The Conformer's sequence-parallel forward against its dense module, both
+# f32 on the card: tests/test_parallel.py's bar.
+SP_TOL = 2e-4
+MASK_INVARIANCE_TOL = 1e-4  # tests/test_models.py's bar, f32
+
+
+def seeded_conformer(dtype: str = "float32"):
+    """The full-width Conformer (dim 256, 6 blocks) with seeded random
+    weights and seeded, non-identity BatchNorm statistics, on the CPU."""
+    import torch
+
+    from sdtk_tpu_torch.models.conformer import Conformer, ConformerConfig
+
+    model = Conformer(ConformerConfig(dtype=dtype))
+    gen = torch.Generator().manual_seed(CONFORMER_SEED)
+    model.reset_parameters(gen)
+    with torch.no_grad():
+        for i in range(model.cfg.n_blocks):
+            bn = getattr(model, f"block{i}").conv.BatchNorm_0
+            bn.running_mean.copy_(0.1 * torch.randn(bn.running_mean.shape, generator=gen))
+            bn.running_var.copy_(0.5 + torch.rand(bn.running_var.shape, generator=gen))
+    return model.eval()
+
+
+def phase_tower_conformer(work: Path, wav) -> dict:
+    """The Conformer tower served by ``GpuBackend(model="conformer")`` at
+    full width from a seeded flax-msgpack file (no Conformer file is
+    bundled): 8 windows of 3 s on the card (bf16) against the same weights
+    in f32 on the CPU, per window at ``TOWER_COS_BAR``; mask invariance on
+    the card in f32 (24 frames of garbage behind a masked tail move the
+    embedding by at most ``MASK_INVARIANCE_TOL``); ms per chunk of 128
+    windows of 1 s; then ``cli.diarize`` on the meeting under
+    ``SDTK_BACKEND_TOWER=conformer`` exits 0 with K1 launched (untrained
+    weights: no DER bar).  Returns the CLI path's launch counts."""
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch.backends.base import get_backend
+    from sdtk_tpu_torch.cli import diarize as cli
+    from sdtk_tpu_torch.utils.checkpoint import conformer_jax_tree, write_msgpack
+
+    path = work / "conformer-seeded.msgpack"
+    write_msgpack(path, conformer_jax_tree(seeded_conformer().state_dict()))
+    os.environ["SDTK_MODEL_PATH"] = str(path)
+    try:
+        with tower("conformer"):
+            eng = get_backend("gpu", device="cuda").engine
+            phase_tower(eng, wav, "tower-conformer", win=48000)
+
+            f32 = seeded_conformer().to("cuda")
+            rng = np.random.default_rng(3)
+            feats = torch.from_numpy(rng.standard_normal((1, 300, 80)).astype(np.float32))
+            garbage = torch.from_numpy(50 * rng.standard_normal((1, 24, 80)).astype(np.float32))
+            mask = torch.arange(324)[None] < 300
+            with torch.inference_mode():
+                ref = f32(feats.cuda())
+                padded = f32(torch.cat([feats, garbage], dim=1).cuda(), mask.cuda())
+            invariance = float((padded - ref).abs().max())
+
+            chunk = np.stack([wav[i * 6000 : i * 6000 + 16000] for i in range(128)])
+            lens = np.full(128, 16000, np.int32)
+            chunk_ms = cuda_ms(lambda: eng.embed(chunk, lens), reps=10, warmup=2)
+            chunk3 = np.stack([wav[i * 6000 : i * 6000 + 48000] for i in range(128)])
+            chunk3_ms = cuda_ms(lambda: eng.embed(chunk3, lens * 3), reps=10, warmup=2)
+
+            wrappers = reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main([str(work / "meeting.wav"), "--format", "rttm", "-q",
+                           "-o", str(work / "meeting-conformer.rttm")])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = read_launches(wrappers)
+            source = eng.params_source
+    finally:
+        os.environ.pop("SDTK_MODEL_PATH", None)
+    n_lines = len((work / "meeting-conformer.rttm").read_text().splitlines()) if rc == 0 else 0
+    emit({"phase": "tower-conformer-path", "params": source,
+          "mask_invariance_max_abs": invariance, "mask_invariance_bar": MASK_INVARIANCE_TOL,
+          "ms_per_chunk_128x1s": chunk_ms, "embed_audio_s_per_s_1s": 128.0 / (chunk_ms / 1e3),
+          "ms_per_chunk_128x3s": chunk3_ms,
+          "embed_audio_s_per_s_3s": 3 * 128.0 / (chunk3_ms / 1e3),
+          "cli_rc": rc, "cli_rttm_lines": n_lines, "cli_seconds": cli_s, "launches": launches})
+    if source != str(path):
+        raise AssertionError(f"tower-conformer: served {source}, not {path}")
+    if not invariance <= MASK_INVARIANCE_TOL:
+        raise AssertionError(f"tower-conformer: padding moved the embedding by {invariance}")
+    if rc != 0 or n_lines == 0 or launches["log_mel_wave"] <= 0:
+        raise AssertionError(f"tower-conformer: diarize rc {rc}, {n_lines} lines, {launches}")
+    return launches
+
+
+def phase_train_conformer(work: Path, device) -> dict:
+    """The trainer's recipe with the full-width Conformer: one step on the
+    card against the CPU from one seeded state and one synthesized batch,
+    both bf16 (loss within ``TRAIN_LOSS_RTOL`` relative, all gradients
+    together at cosine >= ``TRAIN_GRAD_COS``); 10 steps on that batch on
+    the card (step ms by CUDA events and by the profiler, peak memory);
+    then 2 steps of ``training.train(model_name="conformer")`` (K1 once a
+    step), whose file loads through ``SDTK_BACKEND_TOWER=conformer``.
+    Returns the ``train()`` call's launch counts."""
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch import training
+    from sdtk_tpu_torch.backends.base import get_backend
+    from sdtk_tpu_torch.data.batches import BatchSpec, make_batch
+    from sdtk_tpu_torch.data.synth_families import family_utterance
+    from sdtk_tpu_torch.ops.fbank import FrontendConfig
+    from sdtk_tpu_torch.parallel.train import TrainConfig, create_train_state
+    from sdtk_tpu_torch.training import build_model, featurize_step
+
+    fams = tuple(int(f) for f in TRAIN_RECIPE["families"].split(","))
+    spec = BatchSpec(family_ids=fams, **{k: v for k, v in TRAIN_RECIPE.items() if k != "families"})
+    wavs, cls = make_batch(np.random.default_rng(0), spec)
+    cfg = TrainConfig(n_classes=spec.n_classes)
+    fcfg = FrontendConfig()
+
+    def step(state, dev):
+        return featurize_step(state, wavs, cls, cfg, fcfg, dev)
+
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        state = create_train_state(build_model("conformer", 512, 8),
+                                   torch.Generator().manual_seed(0), cfg, dev)
+        m = step(state, dev)
+        params = [*state.model.parameters(), state.aam_weights]
+        runs.append({"loss": float(m["loss"]), "state": state,
+                     "grads": [p.grad.detach().cpu() for p in params]})
+    gpu, cpu = runs
+    cpu_loss = cpu["loss"]
+    loss_rel = abs(gpu["loss"] - cpu_loss) / abs(cpu_loss)
+    grad_cos = _cos(torch.cat([g.flatten() for g in gpu["grads"]]),
+                    torch.cat([g.flatten() for g in cpu["grads"]]))
+    state = gpu["state"]
+    del runs, cpu
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks, losses = [], []
+    for _ in range(10):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses.append(step(state, device)["loss"])
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in marks]
+    peak = torch.cuda.max_memory_allocated()
+    busy = device_ms(lambda: step(state, device), "", reps=3)
+
+    wrappers = reset_launches()
+    logs: list[str] = []
+    t0 = time.perf_counter()
+    tstate, out = training.train(steps=2, model_name="conformer",
+                                 out_path=work / "train-conformer.msgpack", log=logs.append,
+                                 device="cuda", **TRAIN_RECIPE)
+    torch.cuda.synchronize()
+    report = _train_report("train-conformer", tstate, logs, time.perf_counter() - t0,
+                           "not measured")
+    launches = read_launches(wrappers)
+    os.environ["SDTK_MODEL_PATH"] = str(out)
+    try:
+        with tower("conformer"):
+            be = get_backend("gpu", device="cuda")
+            emb = be.embed_waveform(family_utterance(1, 3, 5, 3.0))
+            source = be.engine.params_source
+    finally:
+        os.environ.pop("SDTK_MODEL_PATH", None)
+    emit({**report, "batch": spec.batch, "crop_seconds": spec.crop_seconds,
+          "loss_cuda": gpu["loss"], "loss_cpu": cpu_loss,
+          "loss_rel_diff": loss_rel, "loss_bar": TRAIN_LOSS_RTOL, "grad_cos_all": grad_cos,
+          "grad_cos_bar": TRAIN_GRAD_COS, "losses_10": [float(x) for x in losses],
+          "step_ms_events": step_ms, "step_ms_median": statistics.median(step_ms[3:]),
+          "step_device_busy_ms": busy, "peak_memory_bytes": peak,
+          "launches": launches, "params_source": source, "embedding_dim": int(emb.shape[0])})
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train-conformer: card loss {gpu['loss']}, {loss_rel} from the CPU")
+    if not grad_cos >= TRAIN_GRAD_COS:
+        raise AssertionError(f"train-conformer: gradients at cosine {grad_cos} with the CPU's")
+    if launches["log_mel_wave"] != 2:
+        raise AssertionError(f"train-conformer: launches {launches}, expected log_mel_wave 2")
+    if source != str(out) or emb.shape != (192,) or not np.isfinite(emb).all():
+        raise AssertionError(f"train-conformer: {source} gave {emb.shape}")
+    return launches
+
+
+def phase_conformer_sp(wav, device) -> dict:
+    """``conformer_sp_embed`` in a process group of one rank on NCCL (the
+    ``SDTK_*`` variables) on K1's features of the 61.3 s meeting, with the
+    seeded full-width Conformer in f32, against the dense module on the
+    card (f32) at rtol = atol = ``SP_TOL``: wall ms (a warm-up call, then a
+    timed one) and peak memory of each; K1 held at the path's (1, N)
+    shape.  Returns the path's launch counts (K1 and the forward)."""
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch.ops.fbank import FrontendConfig
+    from sdtk_tpu_torch.ops.fbank_wave import log_mel_wave
+    from sdtk_tpu_torch.ops.ringattn import conformer_sp_embed, time_shard
+    from sdtk_tpu_torch.parallel import multihost
+
+    model = seeded_conformer().to(device)
+    x_np = np.asarray(wav, np.float32)[None]
+    with one_rank_group_env():
+        info = multihost.initialize(device="cuda")
+        try:
+            wrappers = reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats, mask = log_mel_wave(torch.from_numpy(x_np).to(device), FrontendConfig())
+            f_loc, m_loc = time_shard(feats[0]), time_shard(mask[0])
+            emb = conformer_sp_embed(model, f_loc, m_loc)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launches = read_launches(wrappers)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            emb = conformer_sp_embed(model, f_loc, m_loc)
+            torch.cuda.synchronize()
+            sp_ms = (time.perf_counter() - t0) * 1e3
+            sp_peak = torch.cuda.max_memory_allocated()
+        finally:
+            multihost.shutdown()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        dense = model(feats, mask)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense = model(feats, mask)[0]
+        torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    dense_peak = torch.cuda.max_memory_allocated()
+    err = float((emb - dense).abs().max())
+    close = bool(torch.allclose(emb, dense, rtol=SP_TOL, atol=SP_TOL))
+    k1_row = k1_case("bf16-ln", FrontendConfig(), x_np, np.array([x_np.shape[1]], np.int64),
+                     device, config="conformer-sp path")
+    emit({"phase": "conformer-sp", "group": info, "frames": int(feats.shape[1]),
+          "audio_seconds": x_np.shape[1] / 16000, "first_call_seconds": first_s,
+          "sp_wall_ms": sp_ms, "sp_peak_memory_bytes": sp_peak, "dense_wall_ms": dense_ms,
+          "dense_peak_memory_bytes": dense_peak, "max_abs_diff": err, "tol": SP_TOL,
+          "finite": bool(torch.isfinite(emb).all()), "k1_shape": k1_row["shape"],
+          "k1_max_abs_err": k1_row["max_abs_err"], "launches": launches})
+    if not close or not torch.isfinite(emb).all():
+        raise AssertionError(f"conformer-sp: sequence-parallel vs dense max|d| {err}")
+    if launches["log_mel_wave"] != 1:
+        raise AssertionError(f"conformer-sp: launches {launches}, expected log_mel_wave 1")
     return launches
 
 
@@ -2574,6 +2870,9 @@ def main() -> int:
     path_launches["train-vad-step"], vad_step_device_ms = phase_train_vad_step(device)
     path_launches["train-vad"] = phase_train_vad(out_dir, wav, vad_step_device_ms)
     path_launches["shell"] = phase_shell(out_dir, "cuda")
+    path_launches["tower-conformer"] = phase_tower_conformer(out_dir, wav)
+    path_launches["train-conformer"] = phase_train_conformer(out_dir, device)
+    path_launches["conformer-sp"] = phase_conformer_sp(wav, device)
 
     for row in kernel_rows:
         if row["path"] is not None:

@@ -1,5 +1,8 @@
-"""Embedding backends: defaults, registry, and the GPU backend."""
+"""Embedding backends: the protocol, defaults, registry, the GPU backend
+and the Speechmatics client."""
 
-from .base import LocalEmbeddingBackend, get_backend, register_backend
+from .base import (EmbeddingBackend, LocalEmbeddingBackend, get_backend, list_backends,
+                   register_backend, reload_backends_config)
 
-__all__ = ["LocalEmbeddingBackend", "get_backend", "register_backend"]
+__all__ = ["EmbeddingBackend", "LocalEmbeddingBackend", "get_backend", "list_backends",
+           "register_backend", "reload_backends_config"]

@@ -1,12 +1,22 @@
-"""Embedding backends: defaults, enroll / identify / verify, registry.
+"""Embedding backends: the protocol, defaults, enroll / identify / verify,
+and the registry.
 
-The counterpart of ``sdtk_tpu/backends/base.py`` for in-process backends.
-A ``LocalEmbeddingBackend`` maps a waveform to a dense vector; enrollment
-pooling and window-level identify/verify against the profile matrix are
-shared here.  Scoring runs on the backend's ``device``: the dense route
-through ``ops.cosine.score_rows`` (the cosine kernel on CUDA), the large-N
-route through ``ops.topk.identify_topk`` (the fused top-k kernel on CUDA).
-The default threshold 0.354 is the JAX package's.
+The counterpart of ``sdtk_tpu/backends/base.py``.  ``EmbeddingBackend`` is
+the protocol every backend meets (the cloud one, ``speechmatics.py``,
+included): a name, an embedding width and model version, an audio
+profile (``audio_profiles.py``), enroll / identify / verify.  A
+``LocalEmbeddingBackend`` maps a waveform to a dense vector in-process;
+enrollment pooling and window-level identify/verify against the profile
+matrix are shared there.  Scoring runs on the backend's ``device``: the
+dense route through ``ops.cosine.score_rows`` (the cosine kernel on CUDA),
+the large-N route through ``ops.topk.identify_topk`` (the fused top-k
+kernel on CUDA).  The default threshold 0.354 is the JAX package's.
+
+The registry maps a name to a ``"module:Class"`` path: ``gpu``, ``fake``
+and ``speechmatics``, then the entries of the YAML file that
+``$SPEAKER_BACKENDS_CONFIG`` names (``backends: {name: "module:Class"}``
+or ``{name: {class: "module:Class"}}``), read once until
+:func:`reload_backends_config`.
 """
 
 from __future__ import annotations
@@ -23,12 +33,84 @@ import numpy as np
 import torch
 
 from .. import config
+from .audio_profiles import AudioProfile, get_profile
 
 DEFAULT_THRESHOLD = 0.354
 FUSED_IDENTIFY_N = 8192  # profile rows from which identify takes the fused route
 
 
-class LocalEmbeddingBackend(ABC):
+class EmbeddingBackend(ABC):
+    """The backend protocol."""
+
+    @property
+    @abstractmethod
+    def name(self) -> str: ...
+
+    @property
+    def requires_api_key(self) -> bool:
+        return False
+
+    @property
+    def embedding_dim(self) -> int | None:
+        """Width of the embeddings (None for a backend without vectors)."""
+        return None
+
+    @property
+    def model_version(self) -> str:
+        return f"{self.name}-unknown"
+
+    @property
+    def audio_profile(self) -> str | AudioProfile:
+        """A profile name of ``audio_profiles.PROFILES``, or a profile."""
+        return "default"
+
+    def get_audio_profile(self) -> AudioProfile:
+        """:attr:`audio_profile` resolved to an ``AudioProfile``."""
+        profile = self.audio_profile
+        return get_profile(profile) if isinstance(profile, str) else profile
+
+    def check_embedding_compatibility(self, embedding: dict[str, Any]) -> dict[str, Any]:
+        """Is a stored embedding record usable with this backend?  Its
+        model_version must be prefixed by the backend name; otherwise the
+        result carries a re-enroll warning."""
+        emb_version = embedding.get("model_version", "unknown")
+        compatible = emb_version.startswith(f"{self.name}-")
+        return {
+            "compatible": compatible,
+            "version": emb_version,
+            "current": self.model_version,
+            "warning": None if compatible else (
+                f"Embedding created with {emb_version} may not work with "
+                f"backend {self.name}. Consider re-enrolling."),
+        }
+
+    @abstractmethod
+    def enroll_speaker(self, audio_path, segments=None) -> dict[str, Any]:
+        """{"vector", "external_id", "model_version"} of (segments of) a
+        recording."""
+
+    @abstractmethod
+    def identify_speaker(self, audio_path, candidates, threshold=DEFAULT_THRESHOLD,
+                         segments=None) -> list[dict[str, Any]]:
+        """Rows {"speaker_id", "similarity", "confidence", "embedding_id",
+        "backend"} of the candidates that match, best first."""
+
+    def verify_speaker(self, audio_path, profile, threshold=DEFAULT_THRESHOLD, segments=None
+                       ) -> dict[str, Any]:
+        """Identify against the one profile: {"match", "confidence"}."""
+        results = self.identify_speaker(audio_path, [profile], threshold, segments)
+        if results and results[0]["speaker_id"] == profile["id"]:
+            return {"match": True, "confidence": results[0]["confidence"]}
+        return {"match": False, "confidence": results[0]["confidence"] if results else 0.0}
+
+    def extract_segments_from_transcript(self, transcript_data: dict[str, Any],
+                                         speaker_label: str) -> list[tuple[float, float]]:
+        from ..transcripts import extract_segments_as_tuples
+
+        return extract_segments_as_tuples(transcript_data, speaker_label)
+
+
+class LocalEmbeddingBackend(EmbeddingBackend):
     """A backend that maps a waveform to a dense vector in-process."""
 
     sample_rate: int = 16000
@@ -52,18 +134,6 @@ class LocalEmbeddingBackend(ABC):
     # route.
     monotonic_calibration: bool = True
 
-    @property
-    @abstractmethod
-    def name(self) -> str: ...
-
-    @property
-    def embedding_dim(self) -> int | None:
-        return None
-
-    @property
-    def model_version(self) -> str:
-        return f"{self.name}-unknown"
-
     @abstractmethod
     def embed_waveform(self, wav: np.ndarray) -> np.ndarray:
         """float32 mono waveform @ self.sample_rate → (embedding_dim,)."""
@@ -74,21 +144,6 @@ class LocalEmbeddingBackend(ABC):
         if not wavs:
             return np.zeros((0, self.embedding_dim), np.float32)
         return np.stack([np.asarray(self.embed_waveform(w)) for w in wavs])
-
-    def check_embedding_compatibility(self, embedding: dict[str, Any]) -> dict[str, Any]:
-        """Is a stored embedding record usable with this backend?  Its
-        model_version must be prefixed by the backend name; otherwise the
-        result carries a re-enroll warning."""
-        emb_version = embedding.get("model_version", "unknown")
-        compatible = emb_version.startswith(f"{self.name}-")
-        return {
-            "compatible": compatible,
-            "version": emb_version,
-            "current": self.model_version,
-            "warning": None if compatible else (
-                f"Embedding created with {emb_version} may not work with "
-                f"backend {self.name}. Consider re-enrolling."),
-        }
 
     def score_matrix(self, queries: np.ndarray, profiles: np.ndarray) -> np.ndarray:
         """(Q, D) queries vs (P, D) profiles → calibrated scores (Q, P): raw
@@ -189,50 +244,77 @@ class LocalEmbeddingBackend(ABC):
         out.sort(key=lambda r: r["confidence"], reverse=True)
         return out
 
-    def verify_speaker(self, audio_path, profile, threshold=DEFAULT_THRESHOLD, segments=None
-                       ) -> dict[str, Any]:
-        """Identify against the one profile: {"match", "confidence"}."""
-        results = self.identify_speaker(audio_path, [profile], threshold, segments)
-        if results and results[0]["speaker_id"] == profile["id"]:
-            return {"match": True, "confidence": results[0]["confidence"]}
-        return {"match": False, "confidence": results[0]["confidence"] if results else 0.0}
 
-
-_REGISTRY: dict[str, str] = {
+_DEFAULT_REGISTRY: dict[str, str] = {
     "gpu": "sdtk_tpu_torch.backends.gpu:GpuBackend",
     "fake": "sdtk_tpu_torch.backends.fake:FakeBackend",
+    "speechmatics": "sdtk_tpu_torch.backends.speechmatics:SpeechmaticsBackend",
 }
-_instances: dict[tuple, LocalEmbeddingBackend] = {}
+_REGISTRY: dict[str, str] = dict(_DEFAULT_REGISTRY)
+_config_read = False  # the YAML file's entries are in _REGISTRY
+_instances: dict[tuple, EmbeddingBackend] = {}
 _registry_lock = threading.Lock()  # one instance per key, whichever thread asks first
 
 
-def register_backend(name: str, target: str | LocalEmbeddingBackend) -> None:
+def _registry() -> dict[str, str]:
+    """The registry, with the ``$SPEAKER_BACKENDS_CONFIG`` file's entries
+    merged in on first use."""
+    global _config_read
+    if not _config_read:
+        cfg_path = config.backends_config_path()
+        if cfg_path and cfg_path.exists():
+            import yaml
+
+            with open(cfg_path) as f:
+                data = yaml.safe_load(f) or {}
+            for name, spec in (data.get("backends") or {}).items():
+                if isinstance(spec, str):
+                    _REGISTRY[name] = spec
+                elif isinstance(spec, dict) and "class" in spec:
+                    _REGISTRY[name] = spec["class"]
+        _config_read = True
+    return _REGISTRY
+
+
+def register_backend(name: str, target: str | EmbeddingBackend) -> None:
     """Register a ``"module:Class"`` path, or an instance, under ``name``."""
-    if isinstance(target, LocalEmbeddingBackend):
+    registry = _registry()
+    if isinstance(target, EmbeddingBackend):
         _instances[(name,)] = target
-        _REGISTRY[name] = f"<instance:{name}>"
+        registry[name] = f"<instance:{name}>"
     else:
-        _REGISTRY[name] = target
+        registry[name] = target
         for key in [k for k in _instances if k[0] == name]:
             del _instances[key]
 
 
-def get_backend(name: str | None = None, **kwargs: Any) -> LocalEmbeddingBackend:
+def get_backend(name: str | None = None, **kwargs: Any) -> EmbeddingBackend:
     """The backend registered as ``name`` (default: $SPEAKER_DETECTION_BACKEND,
     else ``"gpu"``); one instance per name and constructor arguments."""
     name = name or config.default_backend()
     if (name,) in _instances:
         return _instances[(name,)]
-    if name not in _REGISTRY:
-        raise ValueError(f"Unknown backend '{name}'. Available: {', '.join(sorted(_REGISTRY))}")
+    registry = _registry()
+    if name not in registry:
+        raise ValueError(f"Unknown backend '{name}'. Available: {', '.join(sorted(registry))}")
     key = (name, *sorted(kwargs.items()))
     with _registry_lock:
         if key not in _instances:
-            module_name, _, cls_name = _REGISTRY[name].partition(":")
+            module_name, _, cls_name = registry[name].partition(":")
             cls = getattr(importlib.import_module(module_name), cls_name)
             _instances[key] = cls(**kwargs)
         return _instances[key]
 
 
 def list_backends() -> list[str]:
-    return sorted(_REGISTRY)
+    return sorted(_registry())
+
+
+def reload_backends_config() -> None:
+    """Forget the registry's YAML entries, registrations and instances; the
+    next lookup reads ``$SPEAKER_BACKENDS_CONFIG`` again."""
+    global _config_read
+    _REGISTRY.clear()
+    _REGISTRY.update(_DEFAULT_REGISTRY)
+    _instances.clear()
+    _config_read = False

@@ -3,17 +3,21 @@
 The counterpart of ``sdtk_tpu/backends/tpu.py``.  Audio windows are
 batched on the host, then featurized by the fused log-mel kernel
 (``ops/fbank_wave.py``), embedded by the tower and L2-normalized on the
-device.  The tower is ``ecapa`` (ECAPA-TDNN) or ``xvector``, chosen by
-the ``model`` argument, else ``$SDTK_BACKEND_TOWER`` (default ``ecapa``).
-The checkpoint search and its sidecars are the JAX package's:
+device.  The tower is ``ecapa`` (ECAPA-TDNN), ``xvector`` or ``conformer``
+(dim ``min(channels, 256)``), chosen by the ``model`` argument, else
+``$SDTK_BACKEND_TOWER`` (default ``ecapa``).  The checkpoint search and
+its sidecars are the JAX package's:
 
 - checkpoint: ``$SDTK_MODEL_PATH``, then ``model_dir()/<slug>.msgpack``
-  (``ecapatdnn`` or ``xvector``), then the bundled one:
+  (``ecapatdnn``, ``xvector`` or ``conformer``), then the bundled one:
   ``models/ecapatdnn-fam5tel.msgpack`` for ECAPA at 512 channels, else
-  ``models/<slug>.msgpack``;
+  ``models/<slug>.msgpack``.  No Conformer file is bundled: without one
+  the tower takes seeded random weights (``params_source`` says
+  ``random-init``);
 - ``<ckpt>.config.json``: ``{"model": {EcapaConfig overrides},
   "frontend": {FrontendConfig overrides}, "input_norm": {"mean", "std"}}``
-  (the x-vector, as in the JAX package, takes no ``model`` overrides);
+  (the x-vector and the Conformer, as in the JAX package, take no
+  ``model`` overrides);
 - ``<ckpt>.calib.json``: score calibration (affine into the 0.354
   threshold space); its ``suggested_merge_tau`` is the diarizer's merge
   bar;
@@ -36,18 +40,20 @@ import numpy as np
 import torch
 
 from .. import config
+from ..models.conformer import Conformer, ConformerConfig
 from ..models.ecapa import EcapaConfig, EcapaTdnn, l2_normalize
 from ..models.xvector import XVector, XVectorConfig
 from ..ops.fbank import FrontendConfig
 from ..ops.fbank_wave import log_mel_wave
-from ..utils.checkpoint import ecapa_state_dict, read_msgpack, xvector_state_dict
+from ..utils.checkpoint import (conformer_state_dict, ecapa_state_dict, read_msgpack,
+                                xvector_state_dict)
 from ..utils.device import resolve_device
 from .base import LocalEmbeddingBackend
 
 WINDOW_SECONDS = 3.0
 HOP_SECONDS = 1.5
 # tower name → checkpoint file stem
-CKPT_SLUG = {"ecapa": "ecapatdnn", "xvector": "xvector"}
+CKPT_SLUG = {"ecapa": "ecapatdnn", "xvector": "xvector", "conformer": "conformer"}
 
 
 class GpuBackend(LocalEmbeddingBackend):
@@ -61,11 +67,8 @@ class GpuBackend(LocalEmbeddingBackend):
         device: str | torch.device | None = None,
     ):
         model = model or os.environ.get("SDTK_BACKEND_TOWER", "ecapa")
-        if model == "conformer":
-            raise NotImplementedError(
-                "tower 'conformer' is not ported yet (ROADMAP M14); use ecapa or xvector")
         if model not in CKPT_SLUG:
-            raise ValueError(f"unknown model '{model}' (ecapa | xvector)")
+            raise ValueError(f"unknown model '{model}' (ecapa | xvector | conformer)")
         self.device = resolve_device(device)
         self._args = (model, channels, max_windows, params_path, seed)
         self._engine = None
@@ -177,6 +180,9 @@ class EmbedEngine:
         if model_name == "xvector":  # the JAX engine applies no sidecar "model" here
             self.model = XVector(XVectorConfig(channels=channels))
             to_state_dict = xvector_state_dict
+        elif model_name == "conformer":  # nor here
+            self.model = Conformer(ConformerConfig(dim=min(channels, 256)))
+            to_state_dict = conformer_state_dict
         else:
             model_over = dict(sidecar.get("model", {}))
             if "dilations" in model_over:

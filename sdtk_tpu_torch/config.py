@@ -4,6 +4,7 @@
 - ``SPEAKERS_EMBEDDINGS_DIR``   root of the file DB (shared with the JAX
   package: either package reads a store the other wrote)
 - ``SPEAKER_DETECTION_BACKEND`` default embedding backend name (``gpu``)
+- ``SPEAKER_BACKENDS_CONFIG``   backend registry YAML override
 - ``SPEAKER_DETECTION_DEBUG``   debug dumps
 - ``SPEAKER_LLM_CACHE_DIR``     LLM analysis cache
 - ``SPEAKER_REVIEW_SESSION_DIR`` review session (else ``$XDG_CACHE_HOME``)
@@ -79,6 +80,12 @@ def review_session_dir() -> Path:
 
 def default_backend() -> str:
     return os.environ.get(DEFAULT_BACKEND_ENV, DEFAULT_BACKEND)
+
+
+def backends_config_path() -> Path | None:
+    """Backend registry YAML override ($SPEAKER_BACKENDS_CONFIG)."""
+    p = os.environ.get("SPEAKER_BACKENDS_CONFIG")
+    return Path(p) if p else None
 
 
 def debug_enabled() -> bool:

@@ -48,18 +48,21 @@ class EcapaConfig:
 
 class Conv(nn.Module):
     """Conv1d with flax ``padding="SAME"`` (odd kernels: d·(k−1)/2 on each
-    side), run in the compute dtype ``dt``."""
+    side), run in the compute dtype ``dt``; ``groups`` is flax's
+    ``feature_group_count``."""
 
-    def __init__(self, cin: int, cout: int, kernel: int = 1, dilation: int = 1):
+    def __init__(self, cin: int, cout: int, kernel: int = 1, dilation: int = 1,
+                 groups: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(cout, cin, kernel))
+        self.weight = nn.Parameter(torch.zeros(cout, cin // groups, kernel))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.dilation = dilation
+        self.groups = groups
         self.pad = dilation * (kernel - 1) // 2
 
     def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         return F.conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        padding=self.pad, dilation=self.dilation)
+                        padding=self.pad, dilation=self.dilation, groups=self.groups)
 
 
 class Dense(nn.Module):

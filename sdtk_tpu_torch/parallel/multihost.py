@@ -134,6 +134,35 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of every rank's ``x`` (a new tensor; no
+    autograd); ``x`` without a group."""
+    if not in_group():
+        return x
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX)
+    return out
+
+
+def ring_shift(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """``x`` sent to rank + ``shift`` and received from rank − ``shift``
+    (modulo the world size), the JAX package's ``ppermute`` over a ring:
+    the send and the receive are posted together in one
+    ``batch_isend_irecv``, so no rank blocks in a send that its neighbour
+    has not met with a receive.  ``x`` itself without a group or in a group
+    of one rank (a rank cannot send to itself)."""
+    rank, world = rank_and_world()
+    if world == 1:
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, (rank + shift) % world),
+           dist.P2POp(dist.irecv, out, (rank - shift) % world)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
 def host_work_shard(paths: list[Path | str], process_index: int | None = None,
                     process_count: int | None = None) -> list[Path]:
     """This process's share of the recording list: the first four bytes of

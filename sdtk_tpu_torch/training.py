@@ -40,6 +40,7 @@ import torch
 
 from . import config
 from .data.batches import BatchSpec, make_batch
+from .models.conformer import Conformer, ConformerConfig
 from .models.ecapa import EcapaConfig, EcapaTdnn
 from .models.xvector import XVector, XVectorConfig
 from .ops.fbank import FrontendConfig
@@ -49,12 +50,14 @@ from .parallel.checkpoint import latest_checkpoint, restore_train_state, save_tr
 from .parallel.mesh import parse_mesh_spec
 from .parallel.train import (TrainConfig, TrainState, create_train_state, sync_batchnorm,
                              train_step)
-from .utils.checkpoint import (ecapa_jax_tree, ecapa_state_dict, read_msgpack, write_msgpack,
-                               xvector_jax_tree, xvector_state_dict)
+from .utils.checkpoint import (conformer_jax_tree, conformer_state_dict, ecapa_jax_tree,
+                               ecapa_state_dict, read_msgpack, write_msgpack, xvector_jax_tree,
+                               xvector_state_dict)
 
 # tower name → (state dict → flax variables, flax variables → state dict)
 CONVERTERS = {"ecapa": (ecapa_jax_tree, ecapa_state_dict),
-              "xvector": (xvector_jax_tree, xvector_state_dict)}
+              "xvector": (xvector_jax_tree, xvector_state_dict),
+              "conformer": (conformer_jax_tree, conformer_state_dict)}
 
 
 def build_model(model_name: str, channels: int, scale: int) -> torch.nn.Module:
@@ -63,8 +66,7 @@ def build_model(model_name: str, channels: int, scale: int) -> torch.nn.Module:
     if model_name == "xvector":
         return XVector(XVectorConfig(channels=channels))
     if model_name == "conformer":
-        raise NotImplementedError(
-            "training the conformer is not ported yet (ROADMAP Queue 1, M14)")
+        return Conformer(ConformerConfig(dim=min(channels, 256)))
     raise ValueError(f"unknown model '{model_name}'")
 
 

@@ -184,14 +184,19 @@ def _decoder(path: Path):
     return decoder
 
 
-def load_audio(path: str | Path, target_sr: int = TARGET_SR) -> tuple[np.ndarray, int]:
-    """Decode → mono mixdown → resample to ``target_sr`` (0 keeps the
-    file's rate); returns (float32 samples, rate)."""
+def load_audio(path: str | Path, target_sr: int = TARGET_SR, mono: bool = True
+               ) -> tuple[np.ndarray, int]:
+    """Decode → mono mixdown (unless ``mono`` is False: (N, channels)) →
+    resample to ``target_sr`` (0 keeps the file's rate); returns (float32
+    samples, rate)."""
     path = Path(path)
     x, sr = _decoder(path)(path)
-    x = x.mean(axis=1)
+    if mono:
+        x = x.mean(axis=1)
     if target_sr and sr != target_sr:
-        x, sr = resample(x, sr, target_sr), target_sr
+        x = (resample(x, sr, target_sr) if mono
+             else np.stack([resample(c, sr, target_sr) for c in x.T], axis=1))
+        sr = target_sr
     return np.ascontiguousarray(x, dtype=np.float32), sr
 
 

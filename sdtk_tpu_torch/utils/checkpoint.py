@@ -11,7 +11,8 @@ into nested dicts of numpy arrays — the same tree as
 inverse and writes the bytes ``flax.serialization.msgpack_serialize``
 writes.  The converters carry a model's weights both ways: flax
 variables → the port's state dict (``ecapa_state_dict``,
-``vad_state_dict``), and back (``ecapa_jax_tree``, ``vad_jax_tree``).
+``vad_state_dict``, ``conformer_state_dict``), and back
+(``ecapa_jax_tree``, ``vad_jax_tree``, ``conformer_jax_tree``).
 """
 
 from __future__ import annotations
@@ -208,3 +209,56 @@ def vad_jax_tree(state_dict: dict[str, torch.Tensor]) -> dict:
     LayerNorm ``weight`` → ``scale``; keys sorted at every level, as in the
     JAX trainer's tree after an optax update)."""
     return {"params": ecapa_jax_tree(state_dict)["params"]}
+
+
+_ATTENTION = "MultiHeadDotProductAttention_0"
+
+
+def conformer_state_dict(jax_tree: dict) -> dict[str, torch.Tensor]:
+    """JAX Conformer variables → the port's ``Conformer.state_dict()``.
+
+    ECAPA's conversion (module names kept, Dense and conv kernels
+    transposed, the depthwise kernel (K, 1, C) → (C, 1, K), LayerNorm and
+    BatchNorm ``scale`` → ``weight``, ``batch_stats``), except for the
+    attention's ``DenseGeneral`` leaves: a ``query``/``key``/``value``
+    kernel (C, H, Dh) becomes the weight (H·Dh, C) and its bias (H, Dh)
+    becomes (H·Dh,); the ``out`` kernel (H, Dh, C) becomes (C, H·Dh)."""
+    params = jax_tree["params"]
+    flat = {k: v for k, v in _flatten(params).items() if f".{_ATTENTION}." not in k}
+    sd = ecapa_state_dict({"params": _nest(flat),
+                           "batch_stats": jax_tree.get("batch_stats", {})})
+    for key, arr in _flatten(params).items():
+        if f".{_ATTENTION}." not in key:
+            continue
+        mod, _, leaf = key.rpartition(".")
+        a = np.array(arr, np.float32)
+        if leaf == "kernel":
+            fan_in = a.shape[0] if not mod.endswith(".out") else a.shape[0] * a.shape[1]
+            a, leaf = a.reshape(fan_in, -1).T, "weight"
+        else:
+            a = a.reshape(-1)
+        sd[f"{mod}.{leaf}"] = torch.from_numpy(np.ascontiguousarray(a))
+    return sd
+
+
+def conformer_jax_tree(state_dict: dict[str, torch.Tensor], n_heads: int = 4) -> dict:
+    """The port's ``Conformer.state_dict()`` → JAX Conformer variables, the
+    inverse of :func:`conformer_state_dict` (``n_heads`` splits the
+    attention's flat weights back into (C, H, Dh), (H, Dh) and (H, Dh, C))."""
+    plain = {k: v for k, v in state_dict.items() if f".{_ATTENTION}." not in k}
+    tree = ecapa_jax_tree(plain)
+    flat = _flatten(tree["params"])
+    for key, t in state_dict.items():
+        if f".{_ATTENTION}." not in key:
+            continue
+        mod, _, leaf = key.rpartition(".")
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            out_f, in_f = a.shape
+            a = (a.T.reshape(n_heads, in_f // n_heads, out_f) if mod.endswith(".out")
+                 else a.T.reshape(in_f, n_heads, out_f // n_heads))
+            leaf = "kernel"
+        else:
+            a = a if mod.endswith(".out") else a.reshape(n_heads, -1)
+        flat[f"{mod}.{leaf}"] = np.ascontiguousarray(a)
+    return {"params": _nest(flat), "batch_stats": tree["batch_stats"]}

@@ -44,7 +44,8 @@ from sdtk_tpu_torch.utils.audio import load_audio, save_wav
 JAX_TOOLS = {"catalog": jcatalog, "samples": jsamples, "segments": jsegments, "report": jreport,
              "review": jreview, "llm": jllm, "detection": jdetection, "assign": jassign}
 # port subcommands that take --device (the JAX package has no such flag)
-DEVICE_COMMANDS = {("detection", "enroll"), ("detection", "identify"), ("assign", "assign")}
+DEVICE_COMMANDS = {("detection", "enroll"), ("detection", "identify"), ("assign", "assign"),
+                   ("detection", "check-validity"), ("detection", "backends")}
 _TIME = re.compile(r"\d{4}-\d{2}-\d{2}T\d{2}:\d{2}:\d{2}(\.\d+)?(Z|[+-]\d{2}:\d{2})?")
 
 
@@ -318,3 +319,133 @@ def test_llm_flow(shell, tmp_path):
     shell.same_files()
     shell.both("llm", "clear-cache", "--force")
     shell.same_files()
+
+
+def test_detection_profile_commands(shell, tmp_path, monkeypatch):
+    """The detection subcommands of PR 13 (update, delete, tag, export,
+    query, remove-embedding, update-embedding, check-validity, validate,
+    backends) through both packages on two stores under one frozen clock
+    (profiles' ``utc_now_iso``; export's own timestamp is replaced by
+    ``<time>``): equal return codes, stdout and stderr, and equal files
+    after each step, the exported JSON and the embeddings' vectors
+    included."""
+    from sdtk_tpu.store import profiles as jp
+    from sdtk_tpu_torch.store import profiles as pp
+
+    for mod in (jp, pp):
+        monkeypatch.setattr(mod, "utc_now_iso", lambda: "2026-01-02T03:04:05+00:00")
+    a = voice_wav(tmp_path / "audio" / "a.wav", 220, seed=1)
+    b = voice_wav(tmp_path / "audio" / "b.wav", 520, seed=2)
+    tr = _transcript(tmp_path / "t.json", [("S1", 0, 1500, "one"), ("S1", 2000, 3500, "two")])
+    shell.both("detection", "add", "alice", "--name", "Alice", "--tag", "team",
+               "--name-context", "work=A. Smith", "--nickname", "Al")
+    shell.both("detection", "add", "bob", "--name", "Bob", "--tag", "team", "--tag", "ext")
+    shell.both("detection", "add", "carol", "--name", "Carol")
+    shell.both("detection", "enroll", "alice", str(a))
+    shell.both("detection", "enroll", "alice", str(a), "--segments", "0-2")
+    shell.both("detection", "enroll", "bob", str(b), "--trust-level", "high")
+    shell.both("samples", "extract", "alice", str(a), "--transcript", str(tr), "-l", "S1")
+    shell.both("samples", "review", "alice", "--sample-id", "sample-001", "--reject")
+    shell.same_files()
+
+    shell.both("detection", "update", "alice", "--name", "Alicia", "--description", "lead",
+               "--nickname", "Ali", "--remove-nickname", "Al", "--tag", "core",
+               "--remove-tag", "team", "--metadata", "org=acme", "--name-context", "home=Ally")
+    shell.both("detection", "update", "nobody", "--name", "X", rc=1)
+    assert shell.both("detection", "tag", "bob", "--add", "vip", "--remove", "ext")[1] \
+        == "team,vip\n"
+    shell.both("detection", "tag", "nobody", "--add", "x", rc=1)
+    shell.same_files()
+
+    for argv in ([], ["--format", "speechmatics"], ["--tags", "team", "--context", "work"],
+                 ["--format", "speechmatics", "--context", "home"]):
+        shell.both("detection", "export", *argv)
+    for pkg in ("jax", "port"):  # the file lands in each package's own root
+        shell.run(pkg, "detection", "export", "-o", str(shell.root(pkg) / "export.json"))
+    for expr in (".[].id", "[.[] | select(.tags | contains([\"team\"]))] | length",
+                 ".[] | {id, n: (.embeddings | to_entries | map(.value | length) | add)}",
+                 ".[] | .names.default | ascii_downcase", ".[0].nope.deeper"):
+        shell.both("detection", "query", expr)
+    # an unknown function: the message names each package's own jqlite module
+    got = shell.run("port", "detection", "query", ".[] | frobnicate")
+    want = shell.run("jax", "detection", "query", ".[] | frobnicate")
+    assert got[:2] == want[:2] == (1, "")
+    assert got[2] == want[2].replace("sdtk_tpu/", "sdtk_tpu_torch/")
+    shell.same_files()
+
+    for argv, rc in ((["alice"], 1), (["-v"], 1), (["bob", "-v"], 0), (["carol"], 0),
+                     (["--fix", "-v"], 1), (["nobody"], 0)):
+        shell.both("detection", "check-validity", *argv, rc=rc)
+    shell.same_files()
+
+    shell.both("detection", "update-embedding", "bob", "emb-00000002", "--trust-level", "low")
+    shell.both("detection", "update-embedding", "bob", "emb-99999999", rc=1)
+    shell.both("detection", "update-embedding", "nobody", "emb-00000002", rc=1)
+    shell.both("detection", "remove-embedding", "alice", "emb-00000000")
+    shell.both("detection", "remove-embedding", "alice", "emb-00000000", rc=1)
+    shell.both("detection", "embeddings", "alice", "--show-trust")
+    shell.same_files()
+
+    assert shell.both("detection", "validate")[1] == "All files valid.\n"
+    for pkg in ("jax", "port"):  # the same broken profile and sample file in each store
+        store = shell.root(pkg) / "store"
+        (store / "db" / "dave.json").write_text(json.dumps(
+            {"id": "dave", "names": {"nick": "D"}, "tags": "oops", "version": "2",
+             "embeddings": {"fake": [{"id": "e1", "created_at": "not a date",
+                                      "trust_level": "great", "samples": {"reviewed": [1]},
+                                      "source_segments": [{"start": 0}], "model_version": 3}],
+                            "gpu": "notalist"}}))
+        (store / "samples" / "alice" / "sample-009.meta.yaml").write_text(
+            "sample_id: 9\nsource: {audio_b3sum: 5}\nsegment: []\nreview: {status: maybe}\n")
+    out = shell.both("detection", "validate")[1]
+    assert "db/dave.json:" in out and "samples/alice/sample-009.meta.yaml:" in out
+    shell.both("detection", "validate", "--strict", rc=1)
+    shell.both("detection", "validate", "dave", "--strict", rc=1)
+    shell.both("detection", "validate", "bob", "--strict", rc=0)
+
+    shell.both("detection", "delete", "carol", "--dry-run")
+    shell.both("detection", "delete", "carol", rc=1)
+    shell.both("detection", "delete", "carol", "--force")
+    shell.both("detection", "delete", "carol", "-f", rc=1)
+    shell.same_files()
+
+    # the registries differ by the on-device backend's name: gpu here, tpu there.
+    # Both start from their defaults: other test files register backends of
+    # their own in the same process.
+    from sdtk_tpu.backends import base as jbase
+    from sdtk_tpu_torch.backends import base as pbase
+
+    monkeypatch.setattr(pbase, "_REGISTRY", dict(pbase._DEFAULT_REGISTRY))
+    monkeypatch.setattr(pbase, "_config_read", False)
+    monkeypatch.setattr(jbase, "_registry_cache", None)
+    monkeypatch.delenv("SPEAKER_BACKENDS_CONFIG", raising=False)
+    got = shell.run("port", "detection", "backends")[1].split()
+    want = shell.run("jax", "detection", "backends")[1].split()
+    assert got == ["fake", "gpu", "speechmatics"]
+    assert sorted(n if n != "tpu" else "gpu" for n in want) == got
+    verbose = shell.run("port", "detection", "backends", "-v")[1].splitlines()
+    assert verbose[0] == "fake  (dim=192, model=fake-spectral-v2)"
+    assert verbose[2] == "speechmatics  (dim=0, model=speechmatics-v2)"
+
+
+def test_detection_parser_matches_jax():
+    """The port's detection tool has the JAX tool's seventeen subcommands,
+    each with the JAX one's positionals and options; the port adds only
+    ``--device``, on the commands that build an embedding backend."""
+    import argparse
+
+    from sdtk_tpu_torch.cli import detection as pdetection
+
+    def commands(parser):
+        sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+        return {name: sorted((a.dest, tuple(a.option_strings)) for a in p._actions)
+                for name, p in sub.choices.items()}
+
+    got, want = commands(pdetection.build_parser()), commands(jdetection.build_parser())
+    assert list(got) == list(want) and len(got) == 17
+    device = ("device", ("--device",))
+    for name in want:
+        extra = [d for d in got[name] if d not in want[name]]
+        assert extra == ([device] if ("detection", name) in DEVICE_COMMANDS
+                         or name == "verify" else []), name
+        assert all(d in got[name] for d in want[name]), name

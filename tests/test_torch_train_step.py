@@ -19,20 +19,26 @@ import optax
 import pytest
 import torch
 
+from sdtk_tpu.models.conformer import Conformer as JaxConformer
+from sdtk_tpu.models.conformer import ConformerConfig as JaxConformerConfig
 from sdtk_tpu.models.ecapa import EcapaConfig as JaxEcapaConfig
 from sdtk_tpu.models.ecapa import EcapaTdnn as JaxEcapa
 from sdtk_tpu.models.xvector import XVector as JaxXVector
 from sdtk_tpu.models.xvector import XVectorConfig as JaxXVectorConfig
 from sdtk_tpu.parallel import train as jax_train
+from sdtk_tpu_torch.models.conformer import Conformer, ConformerConfig
 from sdtk_tpu_torch.models.ecapa import BatchNorm, EcapaConfig, EcapaTdnn
 from sdtk_tpu_torch.models.xvector import XVector, XVectorConfig
 from sdtk_tpu_torch.parallel.train import (AdamW, TrainConfig, TrainState, aam_softmax_loss,
                                            make_optimizer, train_step)
-from sdtk_tpu_torch.utils.checkpoint import ecapa_jax_tree, ecapa_state_dict
+from sdtk_tpu_torch.utils.checkpoint import (conformer_jax_tree, conformer_state_dict,
+                                             ecapa_jax_tree, ecapa_state_dict)
 
 SMALL_ECAPA = {"channels": 32, "scale": 4, "mfa_channels": 96, "attention_channels": 16,
                "se_bottleneck": 16, "emb_dim": 16}
 SMALL_XVECTOR = {"channels": 32, "pre_pool_channels": 48, "emb_dim": 16}
+SMALL_CONFORMER = {"dim": 32, "n_blocks": 2, "n_heads": 4, "conv_kernel": 7, "emb_dim": 16,
+                   "attention_channels": 16}
 N_CLASSES = 64
 # Softmax over time is unchanged by a per-channel shift of its logits, so
 # the gradient of attention's second bias is zero in exact arithmetic and
@@ -185,11 +191,11 @@ def _jax_grads(state, feats, mask, labels, cfg):
     return jax.grad(loss_fn)({"params": state.params, "aam": state.aam_weights})
 
 
-def _jax_runs(jax_model, n_steps: int, batches):
+def _jax_runs(jax_model, n_steps: int, batches, linear_outputs: bool = True):
     """JAX's create_train_state(PRNGKey(0)), then n_steps jitted train steps
     from it on each of ``batches``: the initial state and, for each batch,
-    (loss, acc, gradient, state after, Conv and Dense outputs) for each
-    step."""
+    (loss, acc, gradient, state after, Conv and Dense outputs, or None
+    without ``linear_outputs``) for each step."""
     tcfg = jax_train.TrainConfig(n_classes=N_CLASSES, emb_dim=16)
     state0 = jax_train.create_train_state(jax_model, jax.random.PRNGKey(0), tcfg,
                                           jnp.zeros((1, batches[0][0].shape[1], 80)))
@@ -203,8 +209,11 @@ def _jax_runs(jax_model, n_steps: int, batches):
         state, out = state0, []
         for _ in range(n_steps):
             g = jax.device_get(grad(state, *args))
-            pre = linear({"params": state.params, "batch_stats": state.batch_stats}, args[0], args[1])
-            pre = {k.removesuffix("/__call__"): v[0] for k, v in _leaves(pre).items()}
+            pre = None
+            if linear_outputs:
+                pre = linear({"params": state.params, "batch_stats": state.batch_stats},
+                             args[0], args[1])
+                pre = {k.removesuffix("/__call__"): v[0] for k, v in _leaves(pre).items()}
             state, m = step(state, *args)
             out.append((float(m["loss"]), float(m["acc"]), g,
                         jax.device_get((state.params, state.batch_stats, state.aam_weights)), pre))
@@ -212,9 +221,9 @@ def _jax_runs(jax_model, n_steps: int, batches):
     return init, runs
 
 
-def _port_state(model, init) -> TrainState:
+def _port_state(model, init, to_state_dict=ecapa_state_dict) -> TrainState:
     params, stats, aam = init
-    model.load_state_dict(ecapa_state_dict({"params": params, "batch_stats": stats}))
+    model.load_state_dict(to_state_dict({"params": params, "batch_stats": stats}))
     aam_w = torch.nn.Parameter(torch.from_numpy(np.array(aam, np.float32)))
     cfg = TrainConfig(n_classes=N_CLASSES, emb_dim=16)
     return TrainState(model, aam_w, make_optimizer(model, aam_w, cfg))
@@ -284,7 +293,8 @@ def _sign_flips(model, feats, mask, want: dict) -> int:
 
 
 def _check_step(state: TrainState, want, want_grads, exempt: dict, atol: float,
-                where: str, kink: bool = False) -> None:
+                where: str, kink: bool = False,
+                convert=(ecapa_jax_tree, ecapa_state_dict)) -> None:
     """Holds the port's step to JAX's, from the same parameters and
     statistics: every gradient element within its leaf's noise floor of
     JAX's; every parameter and AAM element within ``atol``, but those whose
@@ -294,12 +304,15 @@ def _check_step(state: TrainState, want, want_grads, exempt: dict, atol: float,
     elements whose gradient misses the floor are exempt too, and what they
     miss by is held to ``KINK_GRAD_RTOL`` of their leaf's norm.  Then loads
     JAX's parameters, AAM weights and statistics, so that the next step
-    starts from the same state (the port's optimizer moments carry over)."""
+    starts from the same state (the port's optimizer moments carry over).
+    ``convert`` is the tower's (state dict → flax tree, flax tree → state
+    dict) pair."""
+    to_tree, to_state_dict = convert
     model = state.model
     sd = model.state_dict()
-    tree = ecapa_jax_tree(sd)
+    tree = to_tree(sd)
     grads = {n: p.grad for n, p in model.named_parameters()}
-    got_g = {**_leaves(ecapa_jax_tree({**sd, **grads})["params"]),
+    got_g = {**_leaves(to_tree({**sd, **grads})["params"]),
              "aam": state.aam_weights.grad.numpy()}
     want_g = {**_leaves(want_grads["params"]), "aam": np.asarray(want_grads["aam"])}
     params, stats, aam = want
@@ -326,7 +339,7 @@ def _check_step(state: TrainState, want, want_grads, exempt: dict, atol: float,
     for k in w_stats:
         np.testing.assert_allclose(g_stats[k], w_stats[k], rtol=0, atol=atol,
                                    err_msg=f"{where} batch_stats/{k}")
-    model.load_state_dict(ecapa_state_dict({"params": params, "batch_stats": stats}))
+    model.load_state_dict(to_state_dict({"params": params, "batch_stats": stats}))
     with torch.no_grad():
         state.aam_weights.copy_(torch.from_numpy(np.array(aam, np.float32)))
 
@@ -426,3 +439,45 @@ def test_small_xvector_step_matches_jax():
         assert float(m["acc"]) == want_acc
         _check_step(state, want_state, want_grads, {}, atol=2e-5, where=f"seed {seed}",
                     kink=kink)
+
+
+@pytest.fixture(scope="module")
+def conformer_f32_runs():
+    batches = [_batch(seed) for seed in (0, 1, 2)]
+    jax_model = JaxConformer(JaxConformerConfig(dtype="float32", **SMALL_CONFORMER))
+    return batches, _jax_runs(jax_model, 3, batches, linear_outputs=False)
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+def test_small_conformer_steps_match_jax_f32(conformer_f32_runs, n_steps):
+    """A small Conformer (dim 32, 2 blocks, 4 heads, kernel 7, emb 16, f32)
+    from JAX's create_train_state(PRNGKey(0)), carried across by
+    ``conformer_state_dict``, then n_steps steps on each of three batches of
+    16 with padded frames (seeds 0-2), each step from JAX's parameters and
+    statistics, held as the ECAPA steps are: loss within 1e-5 relative,
+    accuracy equal, every gradient element within its leaf's noise floor,
+    params, AAM weights and batch_stats within 2e-5, exempt elements within
+    ``EXEMPT_BOUND``.  The tower has no ReLU, so no step sits at a kink.
+    Besides attention-pooling's second bias, the key projection's bias has
+    a gradient of rounding noise only (softmax over keys ignores a shift
+    shared by every key): both are exempt at the first step."""
+    batches, (init, jax_runs) = conformer_f32_runs
+    cfg = TrainConfig(n_classes=N_CLASSES, emb_dim=16)
+    convert = (conformer_jax_tree, conformer_state_dict)
+    for seed, (feats, mask, labels), jax_steps in zip((0, 1, 2), batches, jax_runs):
+        state = _port_state(Conformer(ConformerConfig(dtype="float32", **SMALL_CONFORMER)),
+                            init, conformer_state_dict)
+        exempt: dict = {}
+        for i in range(n_steps):
+            want_loss, want_acc, want_grads, want_state, _ = jax_steps[i]
+            m = train_step(state, torch.from_numpy(feats), torch.from_numpy(mask),
+                           torch.from_numpy(labels), cfg)
+            where = f"seed {seed} step {i + 1}"
+            np.testing.assert_allclose(float(m["loss"]), want_loss, rtol=1e-5, err_msg=where)
+            assert float(m["acc"]) == want_acc, where
+            _check_step(state, want_state, want_grads, exempt, atol=2e-5, where=where,
+                        convert=convert)
+            assert exempt[ZERO_GRAD_LEAF].all(), where
+            for b in range(2):
+                assert exempt[f"block{b}/mhsa/MultiHeadDotProductAttention_0/key/bias"].all()
+        assert state.step == n_steps

@@ -159,13 +159,84 @@ def test_crash_resume_restores_saved_state(run, tmp_path):
     assert again.step == 3
 
 
+@pytest.fixture(scope="module")
+def conformer_run(tmp_path_factory):
+    """Two Conformer steps (dim 32) with a checkpoint after each."""
+    d = tmp_path_factory.mktemp("train-conformer")
+    logs: list[str] = []
+    state, out = training.train(steps=2, model_name="conformer", out_path=d / "c.msgpack",
+                                ckpt_dir=d / "ck", ckpt_every=1, log=logs.append, **TINY)
+    return d, state, out, logs
+
+
+def test_conformer_trains_to_a_file_jax_reads(conformer_run):
+    """``train(model_name="conformer")`` takes its steps (K1's plain version
+    as featurizer, finite losses) and writes a flax msgpack that flax's
+    ``msgpack_restore`` reads to the tower's arrays; JAX's ``Conformer``
+    (dim 32, f32) embeds features from that file to the port's embedding
+    within 1e-4."""
+    import jax.numpy as jnp
+
+    from sdtk_tpu.models.conformer import Conformer as JaxConformer
+    from sdtk_tpu.models.conformer import ConformerConfig as JaxConfig
+    from sdtk_tpu_torch.models.conformer import Conformer, ConformerConfig
+    from sdtk_tpu_torch.utils.checkpoint import conformer_jax_tree, conformer_state_dict
+
+    _, state, out, logs = conformer_run
+    assert state.step == 2 and Path(out).name == "c.msgpack"
+    assert all(np.isfinite(t["loss"]) for t in state.timings["steps"])
+    restored = flax.serialization.msgpack_restore(Path(out).read_bytes())
+    want = _leaves(conformer_jax_tree(state.model.state_dict()))
+    assert _leaves(restored).keys() == want.keys()
+    for k, v in _leaves(restored).items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((2, 50, 80)).astype(np.float32)
+    mask = np.arange(50)[None] < np.array([[50], [33]])
+    jax_emb = np.asarray(JaxConformer(JaxConfig(dim=32, dtype="float32")).apply(
+        restored, jnp.asarray(feats), mask=jnp.asarray(mask)))
+    model = Conformer(ConformerConfig(dim=32, dtype="float32"))
+    model.load_state_dict(conformer_state_dict(read_msgpack(out)))
+    with torch.inference_mode():
+        port_emb = model.eval()(torch.from_numpy(feats), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(port_emb, jax_emb, rtol=0, atol=1e-4)
+
+
+def test_conformer_warm_start_and_crash_resume(conformer_run, tmp_path):
+    """``--resume`` of the Conformer file merges every leaf, as many as the
+    JAX trainer counts for that file into its dim-32 tower (flax's init
+    tree), and a second call on the checkpoint directory restores step 2;
+    ``GpuBackend(model="conformer", channels=32)`` serves the file."""
+    import jax
+
+    from sdtk_tpu.models.conformer import Conformer as JaxConformer
+    from sdtk_tpu.models.conformer import ConformerConfig as JaxConfig
+
+    d, _, out, _ = conformer_run
+    logs: list[str] = []
+    training.train(steps=0, model_name="conformer", resume_path=out,
+                   out_path=tmp_path / "w.msgpack", log=logs.append, **TINY)
+    template = JaxConformer(JaxConfig(dim=32)).init(jax.random.PRNGKey(0),
+                                                    np.zeros((1, 8, 80), np.float32))
+    n_jax = len(jax.tree_util.tree_leaves(template))
+    assert _counts(logs) == (str(n_jax), "0")
+    logs2: list[str] = []
+    again, _ = training.train(steps=1, model_name="conformer", out_path=tmp_path / "r.msgpack",
+                              ckpt_dir=d / "ck", ckpt_every=0, log=logs2.append, **TINY)
+    assert any("restored full train state" in m and "(step 2)" in m for m in logs2)
+    assert again.step == 3
+    be = GpuBackend(model="conformer", channels=32, params_path=out, device="cpu")
+    emb = be.embed_waveform(family_utterance(1, 2, 3, 2.0))
+    assert be.engine.params_source == str(out) and emb.shape == (192,)
+    assert np.isfinite(emb).all()
+
+
 @pytest.mark.parametrize("kw,exc,match", [
-    ({"model_name": "conformer"}, NotImplementedError, "M14"),
     # data-parallel training needs the process group of as many ranks
     # (tests/test_torch_train_ddp.py trains on two)
     ({"mesh_spec": "data=2"}, RuntimeError, "process group of 2 ranks"),
     ({"mesh_spec": "data=1,model=2"}, NotImplementedError, "model-axis"),
-], ids=["conformer", "mesh-data2", "mesh-model2"])
+], ids=["mesh-data2", "mesh-model2"])
 def test_unported_options_raise(kw, exc, match, tmp_path):
     with pytest.raises(exc, match=match):
         training.train(steps=1, out_path=tmp_path / "x.msgpack", **{**TINY, **kw})

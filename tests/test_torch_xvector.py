@@ -20,6 +20,7 @@ from sdtk_tpu.models.xvector import XVector as JaxXVector
 from sdtk_tpu.models.xvector import XVectorConfig as JaxConfig
 from sdtk_tpu_torch.backends.gpu import GpuBackend
 from sdtk_tpu_torch.data.synth import synth_utterance
+from sdtk_tpu_torch.models.conformer import Conformer
 from sdtk_tpu_torch.models.ecapa import _masked_mean_std
 from sdtk_tpu_torch.models.xvector import XVector, XVectorConfig
 from sdtk_tpu_torch.ops import fbank
@@ -126,7 +127,8 @@ def test_backends_bf16_agree():
 
 def test_tower_switch(monkeypatch, tmp_path):
     """$SDTK_BACKEND_TOWER picks the tower; version, width and the
-    calibration sidecar follow it; conformer raises."""
+    calibration sidecar follow it; conformer loads (no file is bundled:
+    seeded random weights) and embeds to 192-d unit rows."""
     monkeypatch.setenv("SDTK_MODEL_DIR", str(tmp_path / "none"))
     monkeypatch.delenv("SDTK_MODEL_PATH", raising=False)
     monkeypatch.setenv("SDTK_BACKEND_TOWER", "xvector")
@@ -139,8 +141,12 @@ def test_tower_switch(monkeypatch, tmp_path):
     monkeypatch.delenv("SDTK_BACKEND_TOWER")
     assert GpuBackend(device="cpu").model_version == "ecapa-c512-v1"
     monkeypatch.setenv("SDTK_BACKEND_TOWER", "conformer")
-    with pytest.raises(NotImplementedError, match="M14"):
-        GpuBackend(device="cpu")
+    b = GpuBackend(device="cpu")
+    assert b.model_version == TpuBackend().model_version == "conformer-c512-v1"
+    assert isinstance(b.engine.model, Conformer) and b.engine.model.cfg.dim == 256
+    assert b.engine.params_source == "random-init" and b.embedding_dim == 192
+    emb = b.embed_waveform(synth_utterance(2, 1, 2.0))
+    assert emb.shape == (192,) and np.isfinite(emb).all()
     with pytest.raises(ValueError, match="unknown model"):
         GpuBackend(model="wav2vec", device="cpu")
 

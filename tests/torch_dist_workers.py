@@ -134,3 +134,37 @@ def train_rank(rank: int, world: int, payload: dict) -> dict:
     return {"losses": [s["loss"] for s in state.timings["steps"]], "logs": logs,
             "state": {k: v.clone() for k, v in state.model.state_dict().items()},
             "out": str(out), "step": state.step}
+
+
+# -- ring attention and the sequence-parallel Conformer ------------------------
+
+def ring_cases(rank: int, world: int, payload: dict) -> dict:
+    """``ring_shift`` both ways and ``all_reduce_max`` of [rank, −rank];
+    this rank's block of ``ring_attention`` for each (q, k, v, mask,
+    q_block) case; and ``conformer_sp_embed`` of each (state dict, config, feats,
+    mask) case from this rank's time blocks (``time_shard``); a case whose
+    length does not divide over the ranks returns the error's message."""
+    from sdtk_tpu_torch.models.conformer import Conformer, ConformerConfig
+    from sdtk_tpu_torch.ops import ringattn
+    from sdtk_tpu_torch.ops.ringattn import conformer_sp_embed, ring_attention, time_shard
+    from sdtk_tpu_torch.parallel.multihost import all_reduce_max, ring_shift
+
+    x = torch.tensor([float(rank), -float(rank)])
+    out: dict = {"ring": {}, "sp": {}, "shift": {
+        "next": ring_shift(x, 1).tolist(), "prev": ring_shift(x, -1).tolist(),
+        "max": all_reduce_max(x).tolist()}}
+    for name, (q, k, v, mask, q_block) in payload.get("ring", {}).items():
+        q, k, v, mask = (time_shard(torch.from_numpy(a)) for a in (q, k, v, mask))
+        ringattn.Q_BLOCK = q_block  # this process's own copy of the module
+        out["ring"][name] = ring_attention(q, k, v, mask).numpy()
+    for name, (sd, cfg_kw, feats, mask) in payload.get("sp", {}).items():
+        model = Conformer(ConformerConfig(**cfg_kw))
+        model.load_state_dict(sd)
+        try:
+            f, m = time_shard(torch.from_numpy(feats)), time_shard(torch.from_numpy(mask))
+        except ValueError as e:
+            out["sp"][name] = str(e)
+            continue
+        ringattn.Q_BLOCK = 16  # blocks of queries inside each hop, a ragged last one
+        out["sp"][name] = conformer_sp_embed(model.eval(), f, m).numpy()
+    return out
