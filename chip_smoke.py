@@ -155,6 +155,14 @@ any failure raises and exits non-zero:
              group on K1's features of the phase-5 meeting against the dense
              module on the card, both f32, at rtol = atol = 2e-4; wall ms and
              peak memory of each; K1 held at the path's (1, N) shape;
+32. train-tp — the trainer's model axis: one step of ECAPA c512 (bf16,
+             fam5tel, 320 classes, the recipe's batch of 32 x 1.5 s) at
+             ``data=1,model=2`` on two ranks sharing the card (a gloo group
+             over CUDA tensors) against the step without a group: loss within
+             1 %, every gradient and updated tensor at cosine >= 0.999, each
+             rank's parameter elements equal to the sharding rules' count,
+             the sharded eval forward of 8 windows of 3 s at cosine >= 0.9999,
+             K1 once in each rank's step; step ms and peak memory per rank;
 
 The kernel phase holds all four kernels (log-mel from the waveform, the
 cosine scores, the fused identify top-k, log-mel from frames) at the
@@ -2690,6 +2698,92 @@ def phase_train_conformer(work: Path, device) -> dict:
     return launches
 
 
+# The model axis on the one card: two ranks at data=1,model=2 in a gloo
+# group over CUDA tensors (NCCL takes one rank a device; gloo runs the
+# all-gathers and all-reduces this phase needs on CUDA tensors, f32 and bf16).
+# The sharded step against the one-card step, both bf16 with cuDNN's
+# deterministic algorithms: split convolutions round each block of a
+# layer's input gradient to bf16 before the model ranks sum them, so the
+# loss is held to 1 %, all gradients together and every updated tensor to
+# cosine 0.999, the eval forward to 0.9999 a window.  A gradient that
+# bf16's own rounding dominates (attention's, saturated by the bundled
+# file; some res2 biases) has no direction to agree on: each gradient is
+# held to cosine 0.999 or to twice bf16's rounding there, as train-step
+# holds the card against the CPU.
+TP_MESH = "data=1,model=2"
+TP_LOSS_RTOL = 0.01
+TP_COS = 0.999
+TP_EVAL_COS = 0.9999
+
+
+def phase_train_tp(work: Path, device) -> dict:
+    """``sdtk_tpu_torch.tools.bench_ranks``'s model-axis check at
+    ``TP_MESH``: ECAPA c512 from the fam5tel file (bf16, a seeded AAM head
+    over 320 classes) on one batch of the train recipe, one step split over
+    two ranks against the same step on the card without a group: loss
+    within ``TP_LOSS_RTOL``, all gradients together at cosine >= ``TP_COS``,
+    each at ``TP_COS`` or within ``TRAIN_GRAD_NOISE_FACTOR`` times bf16's
+    rounding (the one-card bf16 gradient's distance from its f32 one), every
+    updated tensor at cosine >= ``TP_COS`` but attention's second bias (its
+    gradient is rounding noise, ``ZERO_GRAD_PARAM``), held to AdamW's ±lr; each rank's
+    parameter elements equal to the rules' count from the whole tower's
+    shapes; the sharded eval forward of 8 windows of 3 s at cosine >=
+    ``TP_EVAL_COS`` per window; K1 once in each rank's step and no other
+    kernel.  Step ms by CUDA events and peak memory, per rank.  Returns
+    rank 0's launch counts."""
+    import torch
+
+    from sdtk_tpu_torch.tools import bench_ranks
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        t = [time.perf_counter()]
+        inputs = bench_ranks.tp_inputs(work, device)
+        t.append(time.perf_counter())
+
+        def one_card():
+            out = bench_ranks.tp_reference(inputs, device)
+            t.append(time.perf_counter())
+            return out
+
+        ref, ranks = bench_ranks.run_tp(inputs, work, TP_MESH, 2, "gloo", one_card)
+        t.append(time.perf_counter())
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    row = bench_ranks.tp_compare(ref, ranks)
+    grad_cos, param_cos = row.pop("grad_cos"), row.pop("param_cos")
+    rounding = row.pop("grad_over_bf16_rounding")
+    zero_diff = float((ranks[0]["params"][ZERO_GRAD_PARAM]
+                       - ref["params"][ZERO_GRAD_PARAM]).abs().max())
+    by_rounding = {n: [grad_cos[n], rounding[n]] for n in grad_cos if grad_cos[n] < TP_COS}
+    low_grads = {n: v for n, v in by_rounding.items() if v[1] > TRAIN_GRAD_NOISE_FACTOR}
+    low_params = {n: c for n, c in param_cos.items() if c < TP_COS and n != ZERO_GRAD_PARAM}
+    emit({"phase": "train-tp", "mesh": TP_MESH, "world": 2, "backend": "gloo (CUDA tensors)",
+          "wall_seconds": t[-1] - t[0], "inputs_seconds": t[1] - t[0],
+          "one_card_seconds": t[2] - t[1], "ranks_after_seconds": t[3] - t[2], **row,
+          "grads_by_rounding": by_rounding, "zero_grad_param": ZERO_GRAD_PARAM,
+          "zero_grad_param_max_abs_diff": zero_diff, "loss_bar": TP_LOSS_RTOL, "cos_bar": TP_COS,
+          "grad_rounding_bar": TRAIN_GRAD_NOISE_FACTOR, "eval_cos_bar": TP_EVAL_COS})
+    if not row["loss_rel_diff"] <= TP_LOSS_RTOL:
+        raise AssertionError(f"train-tp: loss {row['loss']} against {row['loss_one_card']}")
+    if not row["grad_cos_all"] >= TP_COS or low_grads or low_params:
+        raise AssertionError(f"train-tp: gradients at cosine {row['grad_cos_all']}, "
+                             f"{low_grads} beyond bf16's rounding, parameters {low_params}")
+    if not zero_diff <= 2 * 1e-3 * 1.01:
+        raise AssertionError(f"train-tp: {ZERO_GRAD_PARAM} moved {zero_diff} apart")
+    if row["param_elements"] != row["param_elements_by_rules"]:
+        raise AssertionError(f"train-tp: parameter elements {row['param_elements']}, the rules "
+                             f"give {row['param_elements_by_rules']}")
+    if not row["min_eval_cos"] >= TP_EVAL_COS:
+        raise AssertionError(f"train-tp: sharded eval forward at cosine {row['eval_cos']}")
+    for launches in row["launches"]:
+        if launches["log_mel_wave"] != 1 or any(v for k, v in launches.items()
+                                                if k != "log_mel_wave"):
+            raise AssertionError(f"train-tp: launches {row['launches']}, expected K1 once")
+    return row["launches"][0]
+
+
 def phase_conformer_sp(wav, device) -> dict:
     """``conformer_sp_embed`` in a process group of one rank on NCCL (the
     ``SDTK_*`` variables) on K1's features of the 61.3 s meeting, with the
@@ -2873,6 +2967,7 @@ def main() -> int:
     path_launches["tower-conformer"] = phase_tower_conformer(out_dir, wav)
     path_launches["train-conformer"] = phase_train_conformer(out_dir, device)
     path_launches["conformer-sp"] = phase_conformer_sp(wav, device)
+    path_launches["train-tp"] = phase_train_tp(out_dir, device)
 
     for row in kernel_rows:
         if row["path"] is not None:

@@ -79,9 +79,10 @@ def add_verbose_version(parser: argparse.ArgumentParser) -> None:
                         version=f"{parser.prog} (sdtk-tpu {__version__})")
 
 
-def parse_cli(parser: argparse.ArgumentParser, argv: list[str] | None) -> argparse.Namespace:
-    """Parse with -q/-v accepted after the subcommand too (a flag given
-    before it is kept), and both defaulted to False."""
+def add_subcommand_flags(parser: argparse.ArgumentParser) -> None:
+    """Give every subcommand its own -q/-v, so a flag after the subcommand
+    parses; SUPPRESS keeps an absent one from clobbering a flag given
+    before the subcommand."""
     for action in parser._actions:  # noqa: SLF001 — argparse introspection
         if isinstance(action, argparse._SubParsersAction):  # noqa: SLF001
             for sp in action.choices.values():
@@ -90,6 +91,12 @@ def parse_cli(parser: argparse.ArgumentParser, argv: list[str] | None) -> argpar
                     if not opts & set(flags):
                         sp.add_argument(*flags, action="store_true",
                                         default=argparse.SUPPRESS, help=argparse.SUPPRESS)
+
+
+def parse_cli(parser: argparse.ArgumentParser, argv: list[str] | None) -> argparse.Namespace:
+    """Parse with -q/-v accepted after the subcommand too (a flag given
+    before it is kept), and both defaulted to False."""
+    add_subcommand_flags(parser)
     args = parser.parse_args(argv)
     args.quiet = getattr(args, "quiet", False)
     args.verbose = getattr(args, "verbose", False)

@@ -108,6 +108,16 @@ def model_dir() -> Path:
     )
 
 
+def precision() -> str:
+    """Compute dtype for the device core: "bf16" (default) or "f32"."""
+    return os.environ.get("SDTK_PRECISION", "bf16")
+
+
+def mesh_spec() -> str:
+    """Device mesh spec, e.g. "data=8" or "data=4,model=2"; "" = auto."""
+    return os.environ.get("SDTK_DEVICE_MESH", "")
+
+
 def model_path_override() -> Path | None:
     """Explicit checkpoint ($SDTK_MODEL_PATH) — searched before model_dir()."""
     p = os.environ.get("SDTK_MODEL_PATH")

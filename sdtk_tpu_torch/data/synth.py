@@ -117,6 +117,21 @@ def synth_utterance(
     return (0.5 * out / peak).astype(np.float32)
 
 
+def synth_batch(speaker_ids: np.ndarray, utterance_ids: np.ndarray, seconds: float = 3.0,
+                sr: int = SR) -> np.ndarray:
+    """(B,) speaker ids + (B,) utterance ids → (B, seconds·sr) float32."""
+    return np.stack([synth_utterance(int(s), int(u), seconds, sr)
+                     for s, u in zip(speaker_ids, utterance_ids)])
+
+
+def save_test_voice(path, speaker_id: int, utterance_id: int = 0, seconds: float = 4.0):
+    """Write a synthetic voice as a WAV file; returns ``path``."""
+    from ..utils.audio import save_wav
+
+    save_wav(path, synth_utterance(speaker_id, utterance_id, seconds), SR)
+    return path
+
+
 def build_meeting(meeting_id: int, n_speakers: int, n_turns: int, turn_s: float,
                   sr: int = SR) -> tuple[np.ndarray, list[tuple[float, float, str]]]:
     """(waveform, reference segments) of a turn-taking meeting; the same

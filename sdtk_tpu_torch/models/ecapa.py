@@ -16,6 +16,14 @@ rows with no valid frame stay finite.  Parameters are held in float32 and
 cast to the compute dtype where they are used, so autograd returns float32
 gradients.  Under ``module.train()`` BatchNorm normalizes with batch
 statistics as flax's ``nn.BatchNorm(use_running_average=False)`` does.
+
+Tensor parallel (``parallel/sharding.py:shard_params``): a Conv or Dense
+whose ``tp`` is set holds its rank's block of the weight.  A Conv split
+on its output channels, or a lone Dense split so, computes its block and
+gathers the whole output before its (replicated) bias; a Dense split on
+its input rows takes its block of the input and sums the partial
+products over the model ranks; SE's fc1 and fc2, split on the bottleneck,
+are one pair with one sum.  Each returns what the whole layer returns.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.sharding import copy_to, gather_from, reduce_from, scatter_to
 
 
 @dataclass(frozen=True)
@@ -59,10 +69,18 @@ class Conv(nn.Module):
         self.dilation = dilation
         self.groups = groups
         self.pad = dilation * (kernel - 1) // 2
+        self.tp = None  # parallel.sharding.Split: this rank's output channels
 
     def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-        return F.conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        padding=self.pad, dilation=self.dilation, groups=self.groups)
+        if self.tp is None:
+            return F.conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                            padding=self.pad, dilation=self.dilation, groups=self.groups)
+        if self.tp.dim != 0 or self.groups != 1:
+            raise NotImplementedError("a Conv splits its output channels only, ungrouped")
+        mesh = self.tp.mesh
+        y = F.conv1d(copy_to(x.to(dt), mesh), self.weight.to(dt), None,
+                     padding=self.pad, dilation=self.dilation)
+        return gather_from(y, 1, mesh) + self.bias.to(dt)[:, None]
 
 
 class Dense(nn.Module):
@@ -70,9 +88,17 @@ class Dense(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin))
         self.bias = nn.Parameter(torch.zeros(cout))
+        self.tp = None  # parallel.sharding.Split: dim 0 outputs, dim 1 input rows
 
     def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if self.tp is None:
+            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        mesh = self.tp.mesh
+        if self.tp.dim == 1:
+            y = F.linear(scatter_to(x.to(dt), -1, mesh), self.weight.to(dt))
+            return reduce_from(y, mesh) + self.bias.to(dt)
+        y = F.linear(copy_to(x.to(dt), mesh), self.weight.to(dt))
+        return gather_from(y, -1, mesh) + self.bias.to(dt)
 
 
 class BatchNorm(nn.Module):
@@ -87,10 +113,13 @@ class BatchNorm(nn.Module):
     with momentum 0.1 and the unbiased variance instead.
 
     With ``sync`` set (``parallel/train.py:sync_batchnorm``) and more than
-    one rank in the process group, the batch is the global one, as GSPMD
-    makes it for the JAX step over a ``data`` mesh: Σx, Σx² and the count are
-    summed over the ranks in float32 by an all-reduce that autograd
-    differentiates, so the backward is the global batch's too."""
+    one rank in ``sync_group`` (None: the whole process group), the batch
+    is the global one, as GSPMD makes it for the JAX step over a ``data``
+    mesh: Σx, Σx² and the count are summed over the group's ranks in
+    float32 by an all-reduce that autograd differentiates, so the backward
+    is the global batch's too.  With a model axis the group is the data
+    ranks of one model column: the model ranks of a data row hold the same
+    rows and every channel."""
 
     momentum = 0.99
 
@@ -101,7 +130,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self.eps = eps
-        self.sync = False  # statistics over the process group's ranks
+        self.sync = False  # statistics over the ranks of sync_group
+        self.sync_group = None
 
     def _global_moments(self, x: torch.Tensor, dims: list[int]
                         ) -> tuple[torch.Tensor, torch.Tensor] | None:
@@ -109,12 +139,14 @@ class BatchNorm(nn.Module):
         rank's alone (no sync, no group, or a group of one)."""
         import torch.distributed as dist
 
-        if not self.sync or not dist.is_initialized() or dist.get_world_size() == 1:
+        if (not self.sync or not dist.is_initialized()
+                or dist.get_world_size(self.sync_group) == 1):
             return None
         from torch.distributed.nn.functional import all_reduce
 
         count = x.new_full((1,), float(x.numel() // x.shape[1]))
-        sums = all_reduce(torch.cat([x.sum(dims), (x * x).sum(dims), count]))
+        sums = all_reduce(torch.cat([x.sum(dims), (x * x).sum(dims), count]),
+                          group=self.sync_group or dist.group.WORLD)
         c = x.shape[1]
         return sums[:c] / sums[-1], sums[c : 2 * c] / sums[-1]
 
@@ -222,8 +254,15 @@ class SEBlock(nn.Module):
     def forward(self, x, m, dt):
         denom = torch.clamp(m.sum(dim=2), min=1.0)
         s = (x.float() * m).sum(dim=2) / denom  # (B, C)
-        s = torch.relu(self.fc1(s, dt))
-        s = torch.sigmoid(self.fc2(s, dt))
+        fc1, fc2 = self.fc1, self.fc2
+        if fc1.tp is not None and fc2.tp is not None:  # split on the bottleneck: one sum
+            mesh = fc1.tp.mesh
+            h = F.linear(copy_to(s.to(dt), mesh), fc1.weight.to(dt),
+                         scatter_to(fc1.bias, 0, mesh).to(dt))
+            y = reduce_from(F.linear(torch.relu(h), fc2.weight.to(dt)), mesh)
+            s = torch.sigmoid(y + fc2.bias.to(dt))
+        else:
+            s = torch.sigmoid(fc2(torch.relu(fc1(s, dt)), dt))
         return x * s[:, :, None]
 
 

@@ -28,6 +28,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _I, _P]
 
 
+def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Rows scaled to unit norm: x / max(‖x‖, eps)."""
+    return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=eps)
+
+
 def rsqrt_normalize(x: torch.Tensor) -> torch.Tensor:
     """Rows scaled by rsqrt(Σx² + 1e-24), in float32 (the TPU kernels' form)."""
     x = x.float()
@@ -74,6 +79,15 @@ def cosine(queries: torch.Tensor, profiles: torch.Tensor) -> torch.Tensor:
 
 
 cosine.launches = 0
+
+
+def top_k_scores(queries: torch.Tensor, profiles: torch.Tensor, k: int = 3
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Q, D) × (N, D) → the top-k (scores, indices) of each query's row of
+    :func:`cosine` (the kernel on CUDA tensors), best first."""
+    sims = cosine(queries, profiles)
+    scores, idx = torch.topk(sims, min(k, sims.shape[-1]), dim=-1)
+    return scores, idx
 
 
 def _on_device(x, device: torch.device) -> torch.Tensor:

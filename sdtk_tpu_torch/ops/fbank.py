@@ -54,6 +54,12 @@ class FrontendConfig:
         return melbank.num_frames(n_samples, self.win_length, self.hop_length)
 
 
+def frame_signal(x: torch.Tensor, win: int, hop: int) -> torch.Tensor:
+    """(B, N) → (B, T, win) frames, T = 1 + (N − win) // hop (N ≥ win: pad
+    upstream); a strided view of ``x``."""
+    return x.unfold(-1, win, hop)
+
+
 def frame_mask(lengths: torch.Tensor, n_samples: int, cfg: FrontendConfig) -> torch.Tensor:
     """(B,) sample lengths → (B, T) bool validity mask over frames."""
     t = torch.arange(cfg.num_frames(n_samples), device=lengths.device)

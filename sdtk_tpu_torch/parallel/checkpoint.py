@@ -8,7 +8,10 @@ directories are not interchangeable (their inference files are, see
 rule are JAX's: one ``step_XXXXXXXX`` directory per checkpoint, and the
 last such directory in sorted order is the latest.  A checkpoint is
 written into a temporary directory and renamed into place, so a crash
-never leaves a half-written ``step_*``.
+never leaves a half-written ``step_*``.  A checkpoint holds the whole
+state (``parallel/train.py:full_state`` gathers what a mesh splits), so
+it restores into a whole state at any mesh shape, which ``shard_state``
+then splits.
 """
 
 from __future__ import annotations
@@ -21,22 +24,24 @@ from pathlib import Path
 
 import torch
 
-from .train import TrainState
+from .multihost import rank_and_world
+from .train import TrainState, full_state
 
 STATE_FILE = "train_state.pt"
 
 
 def save_train_state(ckpt_dir: str | Path, state: TrainState, step: int | None = None) -> Path:
+    """Every rank calls it (a sharded state is gathered); rank 0 writes.
+    Returns the checkpoint's directory."""
     ckpt_dir = Path(ckpt_dir).resolve()
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
     step = int(state.step if step is None else step)
     path = ckpt_dir / f"step_{step:08d}"
-    payload = {
-        "step": state.step,
-        "model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-        "aam_weights": state.aam_weights.detach().cpu(),
-        "optimizer": state.optimizer.state_dict(),
-    }
+    payload = full_state(state)
+    if rank_and_world()[0] != 0:
+        return path
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    payload["model"] = {k: v.cpu() for k, v in payload["model"].items()}
+    payload["aam_weights"] = payload["aam_weights"].cpu()
     buf = io.BytesIO()
     torch.save(payload, buf)
     tmp = Path(tempfile.mkdtemp(dir=ckpt_dir, prefix=f".{path.name}.", suffix=".tmp"))
@@ -60,8 +65,9 @@ def latest_checkpoint(ckpt_dir: str | Path) -> Path | None:
 
 
 def restore_train_state(ckpt_path: str | Path, state: TrainState) -> TrainState:
-    """Load a checkpoint into ``state`` (from ``create_train_state``, same
-    tower and class count) in place, and return it."""
+    """Load a checkpoint into a whole ``state`` (from
+    ``create_train_state``, same tower and class count, not yet sharded)
+    in place, and return it."""
     device = state.aam_weights.device
     payload = torch.load(Path(ckpt_path) / STATE_FILE, map_location=device, weights_only=True)
     state.model.load_state_dict(payload["model"])

@@ -124,13 +124,13 @@ def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts, dim=0)
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of every rank's ``x`` (a new tensor; no autograd); ``x``
-    without a group."""
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group`` (default: every rank;
+    a new tensor; no autograd); ``x`` without a group."""
     if not in_group():
         return x
     out = x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
@@ -161,6 +161,14 @@ def ring_shift(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
+
+
+def global_mesh(spec: str = ""):
+    """The mesh of ``spec`` over every rank of the process group (call after
+    :func:`initialize`)."""
+    from .mesh import make_mesh
+
+    return make_mesh(spec)
 
 
 def host_work_shard(paths: list[Path | str], process_index: int | None = None,

@@ -17,6 +17,16 @@ summed by one all-reduce and scaled by 1 / world.  AdamW then runs
 replicated on equal gradients, so the ranks' parameters stay equal.
 Without a group the step is the one-device step; in a group of one rank
 the collectives run and change nothing.
+
+Data × model (the JAX step over a ``data=D,model=M`` mesh):
+:func:`shard_state` keeps on each rank its block of every leaf the rules
+split (``parallel/sharding.py``), the AAM head's block of classes when M
+divides them, and the optimizer's moments beside them, so each rank
+stores and updates 1/M of those leaves.  The batch splits over ``data``
+only; the M model ranks of a data row take the same rows.  BatchNorm's
+statistics, the gradients, the loss and the accuracy are summed over the
+data ranks of a model column, and the head is gathered for the loss.
+:func:`make_distributed_step` takes the global batch, as JAX's does.
 """
 
 from __future__ import annotations
@@ -28,7 +38,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .multihost import all_reduce_sum, in_group, rank_and_world
+from .mesh import Mesh, make_mesh
+from .multihost import all_reduce_sum, in_group
+from .sharding import (Sharding, batch_sharding, gather_from, gather_state_dict,
+                       param_shardings, shard_params)
 
 
 @dataclass(frozen=True)
@@ -49,6 +62,10 @@ class TrainState:
     step: int = 0
     # host and device times of the last train() call (not checkpointed)
     timings: dict = field(default_factory=dict)
+    # the mesh of shard_state; None: every rank of the group on ``data``
+    mesh: Mesh | None = None
+    # state-dict names (and "aam_weights") of the tensors split over ``model``
+    shardings: dict[str, Sharding] = field(default_factory=dict)
 
 
 def aam_softmax_loss(
@@ -142,22 +159,67 @@ def create_train_state(model: nn.Module, generator: torch.Generator, cfg: TrainC
     return TrainState(model, aam_weights, make_optimizer(model, aam_weights, cfg))
 
 
-def sync_batchnorm(model: nn.Module) -> None:
+def sync_batchnorm(model: nn.Module, group=None) -> None:
     """Make every train-mode BatchNorm of ``model`` take the statistics of
-    the batch summed over the process group's ranks."""
+    the batch summed over ``group``'s ranks (default: the process
+    group's)."""
     from ..models.ecapa import BatchNorm
 
     for mod in model.modules():
         if isinstance(mod, BatchNorm):
             mod.sync = True
+            mod.sync_group = group
 
 
-def _all_reduce_mean_grads(params: list[torch.Tensor]) -> None:
-    """Every rank's gradients, summed and divided by the world size, in one
-    all-reduce of a flat buffer."""
+def shard_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """Place a whole train state on ``mesh``, in place: the tower's leaves
+    by the rules, the AAM head by classes when ``mesh.model`` divides them,
+    each AdamW moment as its parameter; BatchNorm statistics over the data
+    ranks (in a group).  Returns ``state``."""
+    model, opt = state.model, state.optimizer
+    split = {k: sh for k, sh in param_shardings(model, mesh).items() if sh.spec}
+    aam = state.aam_weights
+    if mesh.model > 1 and aam.shape[0] % mesh.model == 0:
+        split["aam_weights"] = Sharding(mesh, ("model", None))
+    params = {**dict(model.named_parameters()), "aam_weights": aam}
+    moments = {k: st for k in split if (st := opt.state.get(params[k]))}
+    shard_params(model, mesh)
+    if "aam_weights" in split:
+        aam.data = split["aam_weights"].shard(aam.data).clone()
+    for k, st in moments.items():
+        for name in ("exp_avg", "exp_avg_sq"):
+            st[name] = split[k].shard(st[name]).clone()
+    if in_group():
+        sync_batchnorm(model, mesh.data_group)
+    state.mesh, state.shardings = mesh, split
+    return state
+
+
+def full_state(state: TrainState) -> dict:
+    """The whole state as ``parallel/checkpoint.py`` saves it — the step,
+    the tower's state dict, the AAM head and the optimizer's state dict —
+    with every split tensor gathered (a collective over the model group:
+    every rank calls it)."""
+    sh = state.shardings
+    aam = state.aam_weights.detach()
+    opt = state.optimizer.state_dict()
+    names = [n for n, _ in state.model.named_parameters()] + ["aam_weights"]
+    for i, st in opt["state"].items():
+        if names[i] in sh:
+            opt["state"][i] = {k: sh[names[i]].gather(v) if torch.is_tensor(v) and v.dim() else v
+                               for k, v in st.items()}
+    return {"step": state.step,
+            "model": {k: v.detach() for k, v in gather_state_dict(state.model, sh).items()},
+            "aam_weights": sh["aam_weights"].gather(aam) if "aam_weights" in sh else aam,
+            "optimizer": opt}
+
+
+def _all_reduce_mean_grads(params: list[torch.Tensor], mesh: Mesh) -> None:
+    """Every data rank's gradients, summed and divided by their number, in
+    one all-reduce of a flat buffer."""
     grads = [p.grad for p in params if p.grad is not None]
-    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
-    flat.mul_(1.0 / rank_and_world()[1])
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), mesh.data_group)
+    flat.mul_(1.0 / mesh.data)
     offset = 0
     for g in grads:
         g.copy_(flat[offset : offset + g.numel()].view_as(g))
@@ -169,17 +231,35 @@ def train_step(state: TrainState, feats: torch.Tensor, mask: torch.Tensor,
     """One AdamW step on (feats, mask, labels); updates ``state`` in place
     and returns the step's loss and accuracy (device tensors).  In a
     process group the arguments are this rank's share of the global batch,
-    and the loss and accuracy returned are the global batch's."""
+    and the loss and accuracy returned are the global batch's: in a
+    sharded state (:func:`shard_state`) this rank's share is its data
+    row's."""
+    mesh = state.mesh or make_mesh("")
     state.model.train()
     emb = state.model(feats, mask)
-    loss, acc = aam_softmax_loss(emb, state.aam_weights, labels, cfg.margin, cfg.scale)
+    aam = state.aam_weights
+    if "aam_weights" in state.shardings:
+        aam = gather_from(aam, 0, mesh)
+    loss, acc = aam_softmax_loss(emb, aam, labels, cfg.margin, cfg.scale)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     loss = loss.detach()
     if in_group():
-        world = rank_and_world()[1]
-        _all_reduce_mean_grads([p for g in state.optimizer.param_groups for p in g["params"]])
-        loss, acc = all_reduce_sum(torch.stack([loss, acc])) / world
+        _all_reduce_mean_grads([p for g in state.optimizer.param_groups for p in g["params"]],
+                               mesh)
+        loss, acc = all_reduce_sum(torch.stack([loss, acc]), mesh.data_group) / mesh.data
     state.optimizer.step()
     state.step += 1
     return {"loss": loss, "acc": acc}
+
+
+def make_distributed_step(mesh: Mesh, cfg: TrainConfig):
+    """The step over ``mesh`` on a global batch: each rank takes its data
+    row's rows (``batch_sharding``) and steps a state from
+    :func:`shard_state` on them."""
+    rows = batch_sharding(mesh)
+
+    def run(state: TrainState, feats, mask, labels) -> dict[str, torch.Tensor]:
+        return train_step(state, rows.shard(feats), rows.shard(mask), rows.shard(labels), cfg)
+
+    return run

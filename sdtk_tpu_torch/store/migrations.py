@@ -89,3 +89,41 @@ def migrate_sample_metadata(meta: dict[str, Any], target_version: int | None = N
         meta, SAMPLE_METADATA_MIGRATIONS,
         SAMPLE_METADATA_VERSION if target_version is None else target_version,
         "sample metadata")
+
+
+def needs_migration(obj: dict[str, Any], target_version: int) -> bool:
+    """True when ``obj`` is below ``target_version``."""
+    return obj.get("version", 0) < target_version
+
+
+def get_migration_plan(kind: str, from_version: int) -> list[tuple[int, int]]:
+    """The ordered (from, to) steps that bring a ``kind`` ("profile" or
+    "sample_metadata") object at ``from_version`` up to the current
+    version, as far as registered steps reach."""
+    registry, target = {
+        "profile": (PROFILE_MIGRATIONS, PROFILE_SCHEMA_VERSION),
+        "sample_metadata": (SAMPLE_METADATA_MIGRATIONS, SAMPLE_METADATA_VERSION),
+    }[kind]
+    plan = []
+    v = from_version
+    while v < target and (v, v + 1) in registry:
+        plan.append((v, v + 1))
+        v += 1
+    return plan
+
+
+def describe_migrations() -> str:
+    """The migration inventory: each kind's current version and each
+    step's first docstring line."""
+    lines = []
+    for label, registry, current in (
+            ("Profile schema", PROFILE_MIGRATIONS, PROFILE_SCHEMA_VERSION),
+            ("Sample metadata schema", SAMPLE_METADATA_MIGRATIONS, SAMPLE_METADATA_VERSION)):
+        lines.append(f"{label}: current v{current}")
+        for (a, b), fn in sorted(registry.items()):
+            lines.append(f"  v{a} -> v{b}: {(fn.__doc__ or '').strip().splitlines()[0]}")
+    return "\n".join(lines)
+
+
+if __name__ == "__main__":
+    print(describe_migrations())

@@ -5,14 +5,15 @@ The counterpart of ``sdtk_tpu/training.py``.  Run:
 ``python -m sdtk_tpu_torch train ...``); ``--device cpu`` runs on the
 CPU with the frontend kernel's plain version.
 
-``--mesh data=N`` trains data-parallel over a process group of N ranks,
-one device each (``parallel/multihost.py``; e.g. ``torchrun
---nproc-per-node N -m sdtk_tpu_torch.training --mesh data=N``).  Every
-rank draws the same global batch from the seeded producer, as the JAX
-trainer draws it, and takes its own rows; the step is the global
-batch's (``parallel/train.py``).  Rank 0 alone writes checkpoints and
-the inference file; every rank restores them.  ``model=N`` is not
-ported.
+``--mesh data=D,model=M`` trains over a process group of D·M ranks, one
+device each (``parallel/multihost.py``; e.g. ``torchrun --nproc-per-node
+4 -m sdtk_tpu_torch.training --mesh data=2,model=2``).  Every rank draws
+the same global batch from the seeded producer, as the JAX trainer draws
+it, and takes its data row's rows; each rank stores and updates its
+block of every leaf the sharding rules split (``parallel/sharding.py``),
+and the step is the global batch's (``parallel/train.py``).  Checkpoints
+and the inference file hold the whole state, gathered; rank 0 alone
+writes them, and every rank restores them at any mesh shape.
 
 A producer thread synthesizes batches on the host (``data/batches.py``:
 family voices, random crops and gains, augmentation, noise, beds) from
@@ -47,9 +48,9 @@ from .ops.fbank import FrontendConfig
 from .ops.fbank_wave import log_mel_wave
 from .parallel import multihost
 from .parallel.checkpoint import latest_checkpoint, restore_train_state, save_train_state
-from .parallel.mesh import parse_mesh_spec
-from .parallel.train import (TrainConfig, TrainState, create_train_state, sync_batchnorm,
-                             train_step)
+from .parallel.mesh import Mesh, make_mesh, parse_mesh_spec
+from .parallel.sharding import batch_sharding, gather_state_dict
+from .parallel.train import TrainConfig, TrainState, create_train_state, shard_state, train_step
 from .utils.checkpoint import (conformer_jax_tree, conformer_state_dict, ecapa_jax_tree,
                                ecapa_state_dict, read_msgpack, write_msgpack, xvector_jax_tree,
                                xvector_state_dict)
@@ -100,31 +101,29 @@ def featurize_step(state: TrainState, wavs: np.ndarray, cls: np.ndarray, tcfg: T
     ``device`` (the frontend has no parameters, so no gradient flows into
     it), then one AdamW step on ``cls``'s labels.  The loop of ``train``.
     In a process group, ``wavs`` and ``cls`` are the global batch and this
-    rank steps on its own rows of it."""
-    rank, world = multihost.rank_and_world()
-    rows = slice(rank * len(cls) // world, (rank + 1) * len(cls) // world)
+    rank steps on its data row's rows of it."""
+    rows = batch_sharding(state.mesh or make_mesh(""))
     with torch.no_grad():
-        feats, mask = log_mel_wave(torch.from_numpy(wavs[rows]).to(device), fcfg)
-    return train_step(state, feats, mask, torch.from_numpy(cls[rows]).to(device), tcfg)
+        feats, mask = log_mel_wave(rows.shard(torch.from_numpy(wavs)).to(device), fcfg)
+    return train_step(state, feats, mask, rows.shard(torch.from_numpy(cls)).to(device), tcfg)
 
 
-def data_parallel_ranks(mesh_spec: str, batch: int) -> int:
-    """The ranks a ``--mesh`` spec trains over: ``data`` (the process
-    group's size when the spec leaves it out), which must be the group's
-    size and divide the batch.  ``model`` > 1 raises."""
+def train_mesh(mesh_spec: str, batch: int) -> Mesh:
+    """The mesh a ``--mesh`` spec trains over: ``parallel/mesh.py:
+    make_mesh`` over the process group (``data`` inferred when the spec
+    leaves it out), which must have data × model ranks; ``data`` must
+    divide the batch."""
     sizes = parse_mesh_spec(mesh_spec)
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"mesh '{mesh_spec}': model-axis sharding is not ported yet (ROADMAP Queue 1 "
-            "item 4.2); data-parallel meshes (data=N over a process group of N ranks) are")
     world = multihost.rank_and_world()[1]
-    data = sizes.get("data") or world
-    if data != world:
-        raise RuntimeError(f"mesh '{mesh_spec}' needs a process group of {data} ranks; this "
+    model = sizes.get("model", 1)
+    need = (sizes.get("data") or max(world // model, 1)) * model
+    if need != world:
+        raise RuntimeError(f"mesh '{mesh_spec}' needs a process group of {need} ranks; this "
                            f"process has {world} (parallel/multihost.py:initialize)")
-    if batch % data:
-        raise ValueError(f"batch {batch} does not split over {data} ranks")
-    return data
+    mesh = make_mesh(mesh_spec)
+    if batch % mesh.data:
+        raise ValueError(f"batch {batch} does not split over {mesh.data} data ranks")
+    return mesh
 
 
 class _StepClock:
@@ -190,13 +189,11 @@ def train(
     queue wait, and device milliseconds (featurize + forward + backward +
     AdamW; ``steps``)."""
     dev = multihost.rank_device(device)
-    world = data_parallel_ranks(mesh_spec, batch)
-    lead = multihost.rank_and_world()[0] == 0  # writes files and logs
+    mesh = train_mesh(mesh_spec, batch)
+    lead = mesh.rank == 0  # writes files and logs
     if not lead:
         log = lambda msg: None  # noqa: E731
     model = build_model(model_name, channels, scale)
-    if world > 1:
-        sync_batchnorm(model)
     spec = BatchSpec(
         family_ids=tuple(int(x) for x in str(families).split(",") if x != ""),
         n_speakers=n_speakers, batch=batch, seconds=seconds, crop_seconds=crop_seconds,
@@ -212,6 +209,7 @@ def train(
         if latest is not None:
             restore_train_state(latest, state)
             log(f"restored full train state from {latest} (step {state.step})")
+    shard_state(state, mesh)
     fcfg = FrontendConfig()
     rng = np.random.default_rng(seed)
 
@@ -259,7 +257,7 @@ def train(
             if step % log_every == 0 or step == steps - 1:
                 log(f"step {step:4d}  loss {float(out['loss']):7.4f}  "
                     f"acc {float(out['acc']):5.3f}  ({(time.perf_counter() - t_loop):6.1f}s)")
-            if lead and ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
+            if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
                 t0 = time.perf_counter()
                 p = save_train_state(ckpt_dir, state, step=state.step)
                 ckpt_s += time.perf_counter() - t0
@@ -279,8 +277,9 @@ def train(
     to_tree = CONVERTERS[model_name][0]
     out_path = (Path(out_path) if out_path
                 else config.model_dir() / f"{type(model).__name__.lower()}.msgpack")
+    whole = gather_state_dict(state.model, state.shardings)
     if lead:
-        write_msgpack(out_path, to_tree(state.model.state_dict()))
+        write_msgpack(out_path, to_tree(whole))
         log(f"saved params -> {out_path}")
     if multihost.in_group():
         torch.distributed.barrier()  # the file exists when any rank returns
@@ -304,8 +303,8 @@ def main(argv=None) -> int:
     p.add_argument("--model", default="ecapa", choices=["ecapa", "xvector", "conformer"])
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--mesh", default="",
-                   help="Mesh spec as in the JAX trainer: data=N over a process group of N "
-                        "ranks (parallel/multihost.py); model=N is not ported")
+                   help="Mesh spec as in the JAX trainer: data=D,model=M over a process group "
+                        "of D*M ranks (parallel/multihost.py); data is inferred when left out")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out")
     p.add_argument("--resume", help="Warm-start from a saved .msgpack checkpoint")

@@ -172,20 +172,28 @@ def ecapa_jax_tree(state_dict: dict[str, torch.Tensor]) -> dict:
     Conv weights ``(out, in, k)`` → kernels ``(k, in, out)``, Dense ``(out,
     in)`` → ``(in, out)``, a norm's (1-D) ``weight`` → ``scale``, and
     BatchNorm's running statistics → ``batch_stats`` ``mean``/``var``."""
-    params: dict[str, np.ndarray] = {}
-    stats: dict[str, np.ndarray] = {}
+    out: dict[str, dict[str, np.ndarray]] = {"params": {}, "batch_stats": {}}
     for key, t in state_dict.items():
-        mod, _, leaf = key.rpartition(".")
         a = t.detach().to("cpu", torch.float32).numpy().copy()  # no view of a live parameter
-        if leaf in ("running_mean", "running_var"):
-            stats[f"{mod}.{leaf[len('running_'):]}"] = a
-            continue
-        if leaf == "weight" and a.ndim == 1:
-            leaf = "scale"
-        elif leaf == "weight":
-            a, leaf = (a.transpose(2, 1, 0) if a.ndim == 3 else a.T), "kernel"
-        params[f"{mod}.{leaf}"] = np.ascontiguousarray(a)
-    return {"params": _nest(params), "batch_stats": _nest(stats)}
+        collection, path = flax_leaf(key, a.ndim)
+        if path.endswith("/kernel"):
+            a = a.transpose(2, 1, 0) if a.ndim == 3 else a.T
+        out[collection][path.replace("/", ".")] = np.ascontiguousarray(a)
+    return {"params": _nest(out["params"]), "batch_stats": _nest(out["batch_stats"])}
+
+
+def flax_leaf(key: str, ndim: int) -> tuple[str, str]:
+    """A state-dict key of the port's towers → (flax collection, flax path):
+    ``block1.res2.conv3.weight`` → ("params", "block1/res2/conv3/kernel"),
+    a 1-D ``weight`` → ``scale``, ``running_mean``/``running_var`` →
+    ("batch_stats", ".../mean" or ".../var")."""
+    mod, _, leaf = key.rpartition(".")
+    mod = mod.replace(".", "/")
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", f"{mod}/{leaf[len('running_'):]}"
+    if leaf == "weight":
+        leaf = "kernel" if ndim > 1 else "scale"
+    return "params", f"{mod}/{leaf}"
 
 
 def xvector_jax_tree(state_dict: dict[str, torch.Tensor]) -> dict:

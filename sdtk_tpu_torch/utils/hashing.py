@@ -161,7 +161,10 @@ def blake3_numpy(data: bytes) -> bytes:
     return struct.pack("<8I", *_merge_tree(cvs))
 
 
-blake3 = blake3_numpy  # one-shot digest (32 bytes); one chunk or less runs the scalar code
+def blake3(data: bytes) -> bytes:
+    """One-shot BLAKE3 digest (32 bytes): :func:`blake3_numpy`, which runs
+    the scalar code for one chunk or less."""
+    return blake3_numpy(data)
 
 
 def blake3_hex(data: bytes) -> str:
@@ -170,5 +173,10 @@ def blake3_hex(data: bytes) -> str:
 
 def compute_b3sum(file_path: str | Path) -> str:
     """32-hex-char (128-bit) BLAKE3 of a file — the store's content key."""
+    return compute_b3sum_full(file_path)[:32]
+
+
+def compute_b3sum_full(file_path: str | Path) -> str:
+    """Full 64-hex-char BLAKE3 of a file."""
     with open(file_path, "rb") as f:
-        return blake3_hex(f.read())[:32]
+        return blake3_hex(f.read())

@@ -248,5 +248,7 @@ def test_train_conformer_on_two_ranks(tmp_path):
 
 @pytest.mark.parametrize("mesh", ["model=2", "data=1,model=2"])
 def test_model_axis_still_raises(mesh, tmp_path):
-    with pytest.raises(NotImplementedError, match="model-axis"):
+    """A model axis of 2 in a process without a group of 2 ranks raises
+    before anything runs (``tests/test_torch_train_tp.py`` trains on 2)."""
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         training.train(steps=1, mesh_spec=mesh, out_path=tmp_path / "x.msgpack", **TINY)

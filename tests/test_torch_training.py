@@ -232,10 +232,10 @@ def test_conformer_warm_start_and_crash_resume(conformer_run, tmp_path):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    # data-parallel training needs the process group of as many ranks
-    # (tests/test_torch_train_ddp.py trains on two)
+    # a mesh needs the process group of as many ranks (tests/test_torch_train_ddp.py
+    # and test_torch_train_tp.py train on two)
     ({"mesh_spec": "data=2"}, RuntimeError, "process group of 2 ranks"),
-    ({"mesh_spec": "data=1,model=2"}, NotImplementedError, "model-axis"),
+    ({"mesh_spec": "data=1,model=2"}, RuntimeError, "process group of 2 ranks"),
 ], ids=["mesh-data2", "mesh-model2"])
 def test_unported_options_raise(kw, exc, match, tmp_path):
     with pytest.raises(exc, match=match):

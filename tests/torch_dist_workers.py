@@ -168,3 +168,107 @@ def ring_cases(rank: int, world: int, payload: dict) -> dict:
         ringattn.Q_BLOCK = 16  # blocks of queries inside each hop, a ragged last one
         out["sp"][name] = conformer_sp_embed(model.eval(), f, m).numpy()
     return out
+
+
+# -- the model axis: sharded steps and the sharded forward ----------------------
+
+def _tower(name: str, kw: dict):
+    from sdtk_tpu_torch.models.conformer import Conformer, ConformerConfig
+    from sdtk_tpu_torch.models.ecapa import EcapaConfig, EcapaTdnn
+    from sdtk_tpu_torch.models.xvector import XVector, XVectorConfig
+
+    build = {"ecapa": (EcapaTdnn, EcapaConfig), "xvector": (XVector, XVectorConfig),
+             "conformer": (Conformer, ConformerConfig)}[name]
+    return build[0](build[1](dtype="float32", **kw))
+
+
+def train_tp_rank(rank: int, world: int, payload: dict) -> dict:
+    """For each case of ``payload["cases"]`` (tower, its config, JAX's
+    initial (params, batch_stats, AAM weights), global batches, steps):
+    a fresh state from the initial one, split over ``payload["mesh"]``,
+    then ``make_distributed_step`` on each batch, ``steps`` times: each
+    step's global loss and accuracy, the whole gradient and the whole
+    state after it (gathered over the model ranks), and this rank's
+    parameter shapes; and, for ``payload["eval"]`` (tower, config, flax
+    variables, feats, mask), the sharded eval forward of this rank's data
+    rows."""
+    import numpy as np
+
+    from sdtk_tpu_torch.parallel.mesh import make_mesh
+    from sdtk_tpu_torch.parallel.sharding import batch_sharding, shard_params
+    from sdtk_tpu_torch.parallel.train import (TrainConfig, TrainState, full_state,
+                                               make_distributed_step, make_optimizer,
+                                               shard_state)
+    from sdtk_tpu_torch.training import CONVERTERS
+
+    mesh = make_mesh(payload["mesh"])
+    out: dict = {"coords": mesh.coords, "cases": {}}
+    for name, (tower, kw, (params, stats, aam), batches, steps) in payload["cases"].items():
+        cfg = TrainConfig(n_classes=aam.shape[0], emb_dim=aam.shape[1])
+        step = make_distributed_step(mesh, cfg)
+        runs = []
+        for feats, mask, labels in batches:
+            model = _tower(tower, kw)
+            model.load_state_dict(CONVERTERS[tower][1]({"params": params, "batch_stats": stats}))
+            aam_w = torch.nn.Parameter(torch.from_numpy(np.array(aam, np.float32)))
+            state = shard_state(TrainState(model, aam_w, make_optimizer(model, aam_w, cfg)), mesh)
+            local = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+            local["aam_weights"] = tuple(aam_w.shape)
+            run = []
+            for _ in range(steps):
+                m = step(state, torch.from_numpy(feats), torch.from_numpy(mask),
+                         torch.from_numpy(labels))
+                grads = {n: p.grad for n, p in model.named_parameters()}
+                grads["aam_weights"] = aam_w.grad
+                grads = {n: state.shardings[n].gather(g) if n in state.shardings else g.clone()
+                         for n, g in grads.items()}
+                whole = full_state(state)
+                run.append({"loss": float(m["loss"]), "acc": float(m["acc"]), "grads": grads,
+                            "state": {k: v.clone() for k, v in whole["model"].items()}, "aam": whole["aam_weights"].numpy().copy()})
+            runs.append({"steps": run, "local_shapes": local})
+        out["cases"][name] = runs
+    if "eval" in payload:
+        tower, kw, variables, feats, mask = payload["eval"]
+        model = _tower(tower, kw)
+        model.load_state_dict(CONVERTERS[tower][1](variables))
+        rows = batch_sharding(mesh)
+        with torch.no_grad():
+            out["eval"] = shard_params(model, mesh).eval()(
+                rows.shard(torch.from_numpy(feats)), rows.shard(torch.from_numpy(mask))).numpy()
+    return out
+
+
+def f32_towers() -> None:
+    """Make ``training.train`` build its towers in float32 (the trainer's
+    towers are bf16), in this process."""
+    import dataclasses
+
+    from sdtk_tpu_torch import training
+
+    build = training.build_model
+
+    def f32(name: str, channels: int, scale: int):
+        model = build(name, channels, scale)
+        return type(model)(dataclasses.replace(model.cfg, dtype="float32"))
+
+    training.build_model = f32
+
+
+def train_calls_rank(rank: int, world: int, payload: dict) -> list[dict]:
+    """``training.train`` with each keyword set of ``payload["calls"]``, in
+    order, in one group (each call makes its own mesh), with float32
+    towers: each step's loss, the logs, the step count, the file and the
+    last step's whole gradient (gathered over the model ranks)."""
+    from sdtk_tpu_torch import training
+
+    f32_towers()
+    out = []
+    for kw in payload["calls"]:
+        logs: list[str] = []
+        state, path = training.train(log=logs.append, **kw)
+        sh = state.shardings
+        grads = {n: sh[n].gather(p.grad) if n in sh else p.grad.clone()
+                 for n, p in state.model.named_parameters()}
+        out.append({"losses": [s["loss"] for s in state.timings["steps"]], "logs": logs,
+                    "step": state.step, "out": str(path), "grads": grads})
+    return out
