@@ -7,7 +7,8 @@ any failure raises and exits non-zero:
 
 1. env     — card, power limit, torch and CUDA versions;
 2. build   — every kernel under ``sdtk_tpu_torch/csrc`` built with nvcc
-             (one process per source, started together), timed;
+             (one process per source, started together), timed; then the
+             host library (``csrc/host``, ``g++``), timed;
 3. kernel  — each kernel against its plain PyTorch version on the card at
              the main path's shape, with stated tolerances; kernel, plain
              and library times (CUDA events around the wrapper, median of
@@ -163,6 +164,21 @@ any failure raises and exits non-zero:
              rank's parameter elements equal to the sharding rules' count,
              the sharded eval forward of 8 windows of 3 s at cosine >= 0.9999,
              K1 once in each rank's step; step ms and peak memory per rank;
+33. native — the host library (``csrc/host``, ``g++``) loaded; the meeting
+             as 16-bit WAV at 44.1 and 48 kHz and as 24-bit stereo at
+             22.05 kHz, read by the C++ reader (max|d| against SciPy's path,
+             no bar) and diarized through ``cli.diarize`` (3 speakers,
+             DER_BAR, K1 launched); ``load_audio_batch`` equal to
+             ``load_audio``, bit for bit; BLAKE3 of a file of the hour's size
+             natively and in NumPy (one digest, seconds of each);
+34. profile — ``SDTK_PROFILE=1``: a child process's warm diarize reports
+             the five ``diarize.*`` stages; one diarize inside
+             ``profiling.trace(dir)`` writes a Chrome trace with K1's kernel
+             among its CUDA events;
+35. evals  — ``evals.identify --backend gpu`` (4 speakers; each case's
+             identified speakers equal to the CPU's, K1 launched),
+             ``evals.streaming --der --heldout`` (exit 0, DER recorded) and
+             ``evals.warmup`` (exit 0, every library under ``_build``);
 
 The kernel phase holds all four kernels (log-mel from the waveform, the
 cosine scores, the fused identify top-k, log-mel from frames) at the
@@ -2018,6 +2034,26 @@ def phase_heldout_der() -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def recorded_diarize():
+    """A context in which every ``Diarizer.diarize_waveform`` result is
+    appended to the list it yields."""
+    from sdtk_tpu_torch.pipeline import diarize as pdiarize
+
+    results, real = [], pdiarize.Diarizer.diarize_waveform
+
+    def recorded(self, wav):
+        out = real(self, wav)
+        results.append(out)
+        return out
+
+    pdiarize.Diarizer.diarize_waveform = recorded
+    try:
+        yield results
+    finally:
+        pdiarize.Diarizer.diarize_waveform = real
+
+
 def phase_decode(work: Path, ref) -> dict:
     """The main phase's meeting, as the ``cli`` phase wrote it (16-bit WAV),
     saved as FLAC (``flacio.encode``) and as MPEG Layer II
@@ -2031,7 +2067,6 @@ def phase_decode(work: Path, ref) -> dict:
     ``load_audio`` of each.  Returns the launch counts of every call."""
     from sdtk_tpu_torch.cli import diarize as cli
     from sdtk_tpu_torch.cluster.der import diarization_error_rate
-    from sdtk_tpu_torch.pipeline import diarize as pdiarize
     from sdtk_tpu_torch.utils import audio, avio, flacio, mpegaudio, syscodec
 
     start = time.perf_counter()
@@ -2057,17 +2092,8 @@ def phase_decode(work: Path, ref) -> dict:
     else:
         missing["m4a"] = avio.disabled_reason() or "no AAC encoder in the AV libraries"
 
-    results = []
-    real = pdiarize.Diarizer.diarize_waveform
-
-    def recorded(self, wav):
-        out = real(self, wav)
-        results.append(out)
-        return out
-
     rows, total = {}, {}
-    pdiarize.Diarizer.diarize_waveform = recorded
-    try:
+    with recorded_diarize() as results:
         for kind, path in files.items():
             wrappers = reset_launches()
             t0 = time.perf_counter()
@@ -2082,8 +2108,6 @@ def phase_decode(work: Path, ref) -> dict:
                           "der_c075": der["der"], "seconds": wall, "launches": launches,
                           "labels": res["window_labels"]}
             total = {k: total.get(k, 0) + v for k, v in launches.items()}
-    finally:
-        pdiarize.Diarizer.diarize_waveform = real
     t0 = time.perf_counter()
     batch = audio.load_audio_batch([files[k] for k in ("wav", "flac", "mp2")])
     batch_s = time.perf_counter() - t0
@@ -2847,6 +2871,269 @@ def phase_conformer_sp(wav, device) -> dict:
     return launches
 
 
+# The host library (csrc/host: the WAV reader and resampler, the threaded
+# loader, BLAKE3) on the card's machine.  The hour as 16-bit mono WAV is
+# 57 600 000 samples of 2 bytes: the size of the file hashed.
+HOUR_WAV_BYTES = 2 * LONGFORM_SAMPLES + 44
+NATIVE_RATES = {"wav44k": (44100, 1, 16), "wav48k": (48000, 1, 16), "wav22k-24bit-stereo":
+                (22050, 2, 24)}
+
+
+def write_pcm_wav(path: Path, x, sr: int, bits: int) -> None:
+    """(frames, channels) float in [-1, 1] as 16- or 24-bit PCM WAV."""
+    import struct
+
+    import numpy as np
+
+    ch = x.shape[1]
+    v = np.round(np.clip(x, -1.0, 1.0) * ((1 << (bits - 1)) - 1)).astype("<i4")
+    payload = (v.astype("<i2").tobytes() if bits == 16
+               else v.reshape(-1, 1).view(np.uint8).reshape(-1, 4)[:, :3].tobytes())
+    block = ch * bits // 8
+    body = (b"WAVE" + b"fmt " + struct.pack("<IHHIIHH", 16, 1, ch, sr, sr * block, block, bits)
+            + b"data" + struct.pack("<I", len(payload)) + payload)
+    path.write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def phase_native(work: Path, wav, ref, device: str) -> dict:
+    """The host library built by ``g++`` from ``csrc/host`` and loaded; the
+    phase-5 meeting written as 16-bit WAV at 44.1 and 48 kHz and as 24-bit
+    stereo at 22.05 kHz, each read by the C++ reader (``_load_audio_native``
+    returns samples; max|d| against the SciPy path printed, no bar: the two
+    are different filters) and diarized through ``cli.diarize``: 3 speakers,
+    DER <= DER_BAR, K1 launched; ``load_audio_batch`` of the three equal to
+    ``load_audio`` of each, bit for bit; BLAKE3 of a file of the hour's
+    size natively and in NumPy, the same digest, seconds of each.  Returns
+    the launch counts of the three diarize calls."""
+    import numpy as np
+    from scipy.signal import resample_poly
+
+    from sdtk_tpu_torch.cli import diarize as cli
+    from sdtk_tpu_torch.cluster.der import diarization_error_rate
+    from sdtk_tpu_torch.utils import audio, build, hashing, nativelib
+
+    start = time.perf_counter()
+    d = work / "native"
+    d.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    lib = nativelib.get_lib()
+    load_s = time.perf_counter() - t0
+    if lib is None:
+        raise AssertionError("native: the host library did not load")
+    files = {}
+    for kind, (sr, ch, bits) in NATIVE_RATES.items():
+        g = math.gcd(sr, 16000)
+        x = resample_poly(wav.astype(np.float64), sr // g, 16000 // g)
+        cols = np.stack([x, 0.8 * x], axis=1) if ch == 2 else x[:, None]
+        files[kind] = d / f"meeting-{kind}.wav"
+        write_pcm_wav(files[kind], cols, sr, bits)
+
+    rows, total = {}, {}
+    with recorded_diarize() as results:
+        for kind, path in files.items():
+            t0 = time.perf_counter()
+            native = audio._load_audio_native(path, 16000)
+            native_s = time.perf_counter() - t0
+            if native is None:
+                raise AssertionError(f"native: the C++ reader returned nothing for {path.name}")
+            t0 = time.perf_counter()
+            x, sr = audio._decode_wav(path)
+            python = audio.resample(x.mean(axis=1), sr, 16000)
+            python_s = time.perf_counter() - t0
+            wrappers = reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main([str(path), "--format", "json", "-q", "--device", device,
+                           "-o", str(d / f"{kind}.json")])
+            wall = time.perf_counter() - t0
+            launches = read_launches(wrappers)
+            if rc != 0:
+                raise AssertionError(f"native: the CLI returned {rc} on {path.name}")
+            der = diarization_error_rate(ref, results[-1]["segments"], collar=0.75)
+            n = min(len(native[0]), len(python))
+            rows[kind] = {"rate": sr, "bytes": path.stat().st_size, "samples": len(native[0]),
+                          "python_samples": len(python),
+                          "max_abs_diff_vs_scipy": float(np.abs(native[0][:n] - python[:n]).max()),
+                          "native_decode_seconds": native_s, "python_decode_seconds": python_s,
+                          "n_speakers": results[-1]["n_speakers"], "der_c075": der["der"],
+                          "seconds": wall, "launches": launches}
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    paths = list(files.values())
+    t0 = time.perf_counter()
+    batch = audio.load_audio_batch(paths)
+    batch_s = time.perf_counter() - t0
+    batch_same = all(b.shape == w.shape and bool((b == w).all())
+                     for b, w in zip(batch, (audio.load_audio(p)[0] for p in paths)))
+
+    blob = d / "hour-sized.bin"
+    blob.write_bytes(np.random.default_rng(15).integers(0, 256, HOUR_WAV_BYTES, np.uint8).tobytes())
+    data = blob.read_bytes()
+    t0 = time.perf_counter()
+    native_digest = hashing.compute_b3sum_full(blob)
+    native_hash_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    numpy_digest = hashing.blake3_numpy(data).hex()
+    numpy_hash_s = time.perf_counter() - t0
+    emit({"phase": "native", "host_library": build.host_library_path().name,
+          "library_load_seconds": load_s, "files": rows, "load_audio_batch_equal": batch_same,
+          "load_audio_batch_seconds": batch_s, "der_bar": DER_BAR,
+          "blake3": {"bytes": len(data), "native_seconds": native_hash_s,
+                     "numpy_seconds": numpy_hash_s, "same_digest": native_digest == numpy_digest},
+          "seconds": time.perf_counter() - start})
+    blob.unlink()
+    for kind, row in rows.items():
+        if row["n_speakers"] != 3 or not row["der_c075"] <= DER_BAR:
+            raise AssertionError(f"native: {kind} gave {row['n_speakers']} speakers, "
+                                 f"DER {row['der_c075']} (bar {DER_BAR})")
+        if row["launches"]["log_mel_wave"] <= 0:
+            raise AssertionError(f"native: log_mel_wave was not launched on the {kind}")
+    if not batch_same:
+        raise AssertionError("native: load_audio_batch differs from load_audio")
+    if native_digest != numpy_digest:
+        raise AssertionError(f"native: BLAKE3 {native_digest} natively, {numpy_digest} in NumPy")
+    return total
+
+
+# A child process that diarizes the meeting twice with SDTK_PROFILE=1 and
+# profiles only the second (warm) call; the report goes to its stderr at exit.
+PROFILE_CHILD = r"""
+import json, sys, time
+import torch
+from sdtk_tpu_torch.pipeline.diarize import Diarizer
+from sdtk_tpu_torch.utils import profiling
+from sdtk_tpu_torch.utils.audio import load_audio
+wav = load_audio(sys.argv[1])[0]
+d = Diarizer(device=sys.argv[2])
+d.diarize_waveform(wav)
+profiling.reset()
+t0 = time.perf_counter()
+r = d.diarize_waveform(wav)
+if d.device.type == "cuda":
+    torch.cuda.synchronize()
+print(json.dumps({"n_speakers": r["n_speakers"], "wall_seconds": time.perf_counter() - t0}))
+"""
+DIARIZE_STAGES = ("diarize.vad", "diarize.denoise", "diarize.embed", "diarize.cluster",
+                  "diarize.resegment")
+
+
+def phase_profile(work: Path, diarizer, wav, device: str) -> dict:
+    """``SDTK_PROFILE=1``: one warm diarize of the meeting in a child
+    process, whose stderr report must list the five ``diarize.*`` stages
+    once each; then one diarize inside ``profiling.trace(dir)`` here: the
+    trace file written, and K1's kernel (``log_mel_*``, the waveform
+    source) among its CUDA kernel events.  Returns the traced call's launch
+    counts."""
+    from sdtk_tpu_torch.utils import profiling
+
+    start = time.perf_counter()
+    d = work / "profile"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    env = {**os.environ, "SDTK_PROFILE": "1", "PYTHONPATH": str(ROOT)}
+    env.pop("SDTK_TRACE_DIR", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", PROFILE_CHILD, str(work / "meeting.wav"), device],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"profile: the child exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    report = proc.stderr[proc.stderr.find("── sdtk profile ──"):].splitlines()[1:]
+    stages = {}
+    for line in report:
+        parts = line.split()
+        if len(parts) >= 3 and parts[1].endswith("s") and parts[2].startswith("("):
+            stages[parts[0]] = {"seconds": float(parts[1][:-1]),
+                                "count": int(parts[2].strip("(x,"))}
+
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    with profiling.trace(str(d / "trace")):
+        diarizer.diarize_waveform(wav)
+    trace_s = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    files = sorted((d / "trace").glob("*.pt.trace.json"))
+    events = json.loads(files[0].read_text())["traceEvents"] if files else []
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k1 = sorted({n for n in kernels if "log_mel_" in n and "FrameRows" not in n})
+    emit({"phase": "profile", "child_seconds": child_s, "child": child, "stages": stages,
+          "report": report, "trace_file": files[0].name if files else None,
+          "trace_bytes": files[0].stat().st_size if files else 0, "trace_seconds": trace_s,
+          "trace_kernel_events": len(kernels), "k1_events": sum(n in k1 for n in kernels),
+          "k1_names": k1[:3], "launches": launches, "seconds": time.perf_counter() - start})
+    missing = [s for s in DIARIZE_STAGES if stages.get(s, {}).get("count") != 1]
+    if missing:
+        raise AssertionError(f"profile: stages {missing} not reported once: {report}")
+    if not files or not k1:
+        raise AssertionError(f"profile: no trace, or no K1 kernel among its {len(kernels)} "
+                             f"kernel events")
+    if launches["log_mel_wave"] <= 0:
+        raise AssertionError("profile: log_mel_wave was not launched in the traced call")
+    return launches
+
+
+def phase_evals(work: Path, device: str) -> dict:
+    """The eval scripts on the card: ``evals.identify --backend gpu`` at 4
+    speakers, case by case the identified speakers equal to the same cases
+    run on the CPU (K1 launched on the card; 4 profiles are scored on the
+    host, below the cosine kernel's 2**24 products); ``evals.streaming
+    --der --heldout`` (exit 0, its DER recorded, K1 launched);
+    ``evals.warmup`` in a child process (exit 0, every kernel's library and
+    the host library under ``_build`` afterwards).  Seconds of each.
+    Returns the launch counts of identify and streaming."""
+    from sdtk_tpu_torch.evals import identify, streaming
+    from sdtk_tpu_torch.utils import build
+
+    start = time.perf_counter()
+    d = work / "evals"
+    d.mkdir(parents=True, exist_ok=True)
+    seconds, cases = {}, {}
+    wrappers = reset_launches()
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        out = run_json(identify, ["--backend", "gpu", "--speakers", "4", "--device", dev,
+                                  "--cases", str(d / f"cases-{dev}.json")])
+        seconds[f"identify_{dev}"] = time.perf_counter() - t0
+        cases[dev] = json.loads((d / f"cases-{dev}.json").read_text())
+        if dev == device:
+            id_launches, id_out = read_launches(wrappers), out
+    differ = [(a["case"], a["identified"], b["identified"])
+              for a, b in zip(cases[device], cases["cpu"])
+              if a["case"] != b["case"] or set(a["identified"]) != set(b["identified"])]
+    low = min((s for c in cases[device] for s in c["scores"][: len(c["expected"])]), default=0.0)
+
+    wrappers = reset_launches()
+    t0 = time.perf_counter()
+    st = run_json(streaming, ["--backend", "gpu", "--device", device, "--der", "--heldout"])
+    seconds["streaming_der"] = time.perf_counter() - t0
+    st_launches = read_launches(wrappers)
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sdtk_tpu_torch.evals.warmup",
+                           "--device", device], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True,
+                          text=True, timeout=600)
+    seconds["warmup"] = time.perf_counter() - t0
+    warm = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    libs = {n: build.library_path(n).exists() for n in build.kernel_names() if device == "cuda"}
+    libs["host"] = build.host_library_path().exists()
+    emit({"phase": "evals", "identify": id_out, "identify_cases": len(cases[device]),
+          "identify_cases_differing": differ, "identify_lowest_expected_score": low,
+          "identify_launches": id_launches, "streaming": st, "streaming_launches": st_launches,
+          "warmup_rc": proc.returncode, "warmup": warm, "libraries_present": libs,
+          "seconds": seconds, "wall_seconds": time.perf_counter() - start})
+    if differ or len(cases[device]) != len(cases["cpu"]):
+        raise AssertionError(f"evals: identify on the card differs from the CPU: {differ}")
+    if id_launches["log_mel_wave"] <= 0:
+        raise AssertionError(f"evals: identify launched {id_launches}, expected K1")
+    if st_launches["log_mel_wave"] <= 0:
+        raise AssertionError("evals: streaming did not launch log_mel_wave")
+    if proc.returncode != 0:
+        raise AssertionError(f"evals: warmup exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    if not all(libs.values()):
+        raise AssertionError(f"evals: libraries missing under _build after warmup: {libs}")
+    return {k: id_launches[k] + st_launches[k] for k in id_launches}
+
+
 def main() -> int:
     if not (ROOT / "sdtk_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -2870,7 +3157,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": sorted(logs),
+    kernels_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_library = build.build_host()
+    emit({"phase": "build", "seconds": kernels_s, "kernels": sorted(logs),
+          "host_library": host_library.name, "host_library_seconds": time.perf_counter() - t0,
           "ptxas": {k: [ln.strip() for ln in v.splitlines() if "Used" in ln or "spill" in ln]
                     for k, v in logs.items()},
           "tensor_core_instructions": mma_counts()})
@@ -2968,6 +3259,9 @@ def main() -> int:
     path_launches["train-conformer"] = phase_train_conformer(out_dir, device)
     path_launches["conformer-sp"] = phase_conformer_sp(wav, device)
     path_launches["train-tp"] = phase_train_tp(out_dir, device)
+    path_launches["native"] = phase_native(out_dir, wav, ref, "cuda")
+    path_launches["profile"] = phase_profile(out_dir, diarizer, wav, "cuda")
+    path_launches["evals"] = phase_evals(out_dir, "cuda")
 
     for row in kernel_rows:
         if row["path"] is not None:

@@ -20,6 +20,7 @@ import numpy as np
 from ..cluster.der import Segment, labels_to_segments
 from ..cluster.spectral import spectral_cluster
 from ..utils.device import resolve_device
+from ..utils.profiling import stage
 
 
 @dataclass(frozen=True)
@@ -230,24 +231,25 @@ class Diarizer:
         cfg = self.cfg
         clock = _StageClock()
         speech_spans: list[tuple[float, float]] | None = None
-        use_trained = cfg.vad == "trained"
-        if cfg.vad == "auto":
-            from .vad import trained_vad_available
+        with stage("diarize.vad"):
+            use_trained = cfg.vad == "trained"
+            if cfg.vad == "auto":
+                from .vad import trained_vad_available
 
-            use_trained = trained_vad_available()
-        vad_grid = None
-        if use_trained:
-            from .vad import trained_vad_analysis
+                use_trained = trained_vad_available()
+            vad_grid = None
+            if use_trained:
+                from .vad import trained_vad_analysis
 
-            starts, keep, speech_spans, vad_grid = trained_vad_analysis(
-                wav, cfg.sample_rate, cfg.window_seconds,
-                cfg.hop_seconds, return_grid=True,
-            )
-        else:
-            starts, keep = energy_vad_mask(
-                wav, cfg.sample_rate, cfg.window_seconds,
-                cfg.hop_seconds, cfg.vad_threshold_db,
-            )
+                starts, keep, speech_spans, vad_grid = trained_vad_analysis(
+                    wav, cfg.sample_rate, cfg.window_seconds,
+                    cfg.hop_seconds, return_grid=True,
+                )
+            else:
+                starts, keep = energy_vad_mask(
+                    wav, cfg.sample_rate, cfg.window_seconds,
+                    cfg.hop_seconds, cfg.vad_threshold_db,
+                )
         clock.lap("vad")
         speech_starts = starts[keep]
         if len(speech_starts) == 0:
@@ -256,31 +258,35 @@ class Diarizer:
         if cfg.denoise == "auto" and speech_spans:
             from .denoise import estimate_and_subtract
 
-            wav = estimate_and_subtract(
-                wav, cfg.sample_rate, speech_spans, frame_probs=vad_grid)
+            with stage("diarize.denoise"):
+                wav = estimate_and_subtract(
+                    wav, cfg.sample_rate, speech_spans, frame_probs=vad_grid)
             clock.lap("denoise")
 
-        emb = self._embed_windows(wav, speech_starts)  # ends on a device→host copy
+        with stage("diarize.embed"):
+            emb = self._embed_windows(wav, speech_starts)  # ends on a device→host copy
         clock.lap("embed")
-        tau = cfg.merge_tau if cfg.merge_tau is not None else self.backend.cluster_merge_tau
-        rel = self.backend.cluster_merge_rel
-        if cfg.n_speakers is None:
-            from ..cluster.turns import turn_cluster
+        with stage("diarize.cluster"):
+            tau = cfg.merge_tau if cfg.merge_tau is not None else self.backend.cluster_merge_tau
+            rel = self.backend.cluster_merge_rel
+            if cfg.n_speakers is None:
+                from ..cluster.turns import turn_cluster
 
-            labels, n_spk = turn_cluster(
-                emb, speech_starts, hop_s=cfg.hop_seconds, tau=tau,
-                rel=rel or 0.75, max_speakers=cfg.max_speakers, device=self.device,
-            )
-        else:
-            labels, n_spk = spectral_cluster(
-                emb, n_speakers=cfg.n_speakers, max_speakers=cfg.max_speakers,
-                merge_tau=tau, merge_rel=rel, device=self.device,
-            )
+                labels, n_spk = turn_cluster(
+                    emb, speech_starts, hop_s=cfg.hop_seconds, tau=tau,
+                    rel=rel or 0.75, max_speakers=cfg.max_speakers, device=self.device,
+                )
+            else:
+                labels, n_spk = spectral_cluster(
+                    emb, n_speakers=cfg.n_speakers, max_speakers=cfg.max_speakers,
+                    merge_tau=tau, merge_rel=rel, device=self.device,
+                )
         clock.lap("cluster")
         if cfg.resegment:
             from ..cluster.resegment import resegment
 
-            labels = resegment(emb, labels, n_spk)
+            with stage("diarize.resegment"):
+                labels = resegment(emb, labels, n_spk)
             clock.lap("resegment")
 
         overlap_pairs: list[tuple[int, int]] = []  # (window_idx, 2nd label)

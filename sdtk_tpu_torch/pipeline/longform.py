@@ -47,6 +47,7 @@ from ..cluster.spectral import kmeans, merge_count, normalized_laplacian, topk_e
 from ..models.ecapa import l2_normalize
 from ..ops.longform import pad_for_sharding, sharded_affinity_rows, sharded_log_mel
 from ..parallel.multihost import all_gather_rows, rank_and_world, rank_device
+from ..utils.profiling import stage
 from .diarize import _StageClock
 
 # Windows a rank embeds in one call of the tower (1024 windows of 1.0 s:
@@ -149,32 +150,33 @@ class LongformDiarizer:
         rank, world = rank_and_world()
         clock = _StageClock()
 
-        def stage(name: str) -> None:  # a stage's device work counts in it
+        def lap(name: str) -> None:  # a stage's device work counts in it
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             clock.lap(name)
 
         wav = np.asarray(wav, np.float32)
 
-        # every rank holds an equal chunk of the padded signal
-        padded = pad_for_sharding(wav, world, fcfg)
-        n_local = len(padded) // world
-        x_local = torch.from_numpy(padded[rank * n_local : (rank + 1) * n_local]).to(dev)
-        feats = sharded_log_mel(x_local, fcfg)  # (T, n_mels) on every rank
-        stage("frontend")
+        with stage("longform.embed_program"):
+            # every rank holds an equal chunk of the padded signal
+            padded = pad_for_sharding(wav, world, fcfg)
+            n_local = len(padded) // world
+            x_local = torch.from_numpy(padded[rank * n_local : (rank + 1) * n_local]).to(dev)
+            feats = sharded_log_mel(x_local, fcfg)  # (T, n_mels) on every rank
+            lap("frontend")
 
-        hop_frames = int(cfg.hop_seconds * fcfg.frames_per_second)
-        win_frames = int(cfg.window_seconds * fcfg.frames_per_second)
-        hop_s = hop_frames * fcfg.hop_length / fcfg.sample_rate
-        win_s = win_frames * fcfg.hop_length / fcfg.sample_rate
-        windows = frame_axis0(feats, win_frames, hop_frames)
-        w = windows.shape[0]
-        per = -(-w // world)  # windows a rank embeds (the last rank's tail is padding)
-        lo, hi = min(rank * per, w), min((rank + 1) * per, w)
-        emb = all_gather_rows(self._embed(windows, lo, hi, per))[:w]
-        energy = windows.mean(dim=(1, 2))
-        emb_np, energy_np = emb.cpu().numpy(), energy.cpu().numpy()
-        stage("embed")
+            hop_frames = int(cfg.hop_seconds * fcfg.frames_per_second)
+            win_frames = int(cfg.window_seconds * fcfg.frames_per_second)
+            hop_s = hop_frames * fcfg.hop_length / fcfg.sample_rate
+            win_s = win_frames * fcfg.hop_length / fcfg.sample_rate
+            windows = frame_axis0(feats, win_frames, hop_frames)
+            w = windows.shape[0]
+            per = -(-w // world)  # windows a rank embeds (the last rank's tail is padding)
+            lo, hi = min(rank * per, w), min((rank + 1) * per, w)
+            emb = all_gather_rows(self._embed(windows, lo, hi, per))[:w]
+            energy = windows.mean(dim=(1, 2))
+            emb_np, energy_np = emb.cpu().numpy(), energy.cpu().numpy()
+            lap("embed")
 
         # gate BEFORE clustering: non-speech must not vote in the affinity,
         # the eigensolve or the count
@@ -189,34 +191,36 @@ class LongformDiarizer:
         wb = -(-wk // bucket) * bucket
         emb_padded = np.repeat(emb_kept[:1], wb, axis=0)
         emb_padded[:wk] = emb_kept
-        rows = wb // world
-        block = torch.from_numpy(emb_padded[rank * rows : (rank + 1) * rows]).to(dev)
-        lap = normalized_laplacian(sharded_affinity_rows(block))
-        stage("affinity")
+        with stage("longform.cluster_program"):
+            rows = wb // world
+            block = torch.from_numpy(emb_padded[rank * rows : (rank + 1) * rows]).to(dev)
+            lap_matrix = normalized_laplacian(sharded_affinity_rows(block))
+            lap("affinity")
 
-        k_eig = cfg.max_speakers + 1
-        start = None
-        if self.subspace_start is not None:
-            start = self.subspace_start(wb, min(wb, k_eig + 8))
-        _, eigvecs = topk_eigvecs_subspace(lap, k_eig, start=start)
-        eigvecs = eigvecs[:wk]
-        del lap
-        stage("eigensolve")
+            k_eig = cfg.max_speakers + 1
+            start = None
+            if self.subspace_start is not None:
+                start = self.subspace_start(wb, min(wb, k_eig + 8))
+            _, eigvecs = topk_eigvecs_subspace(lap_matrix, k_eig, start=start)
+            eigvecs = eigvecs[:wk]
+            del lap_matrix
+            lap("eigensolve")
 
-        def unit_rows(x: torch.Tensor) -> torch.Tensor:
-            return x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True), min=1e-12)
+            def unit_rows(x: torch.Tensor) -> torch.Tensor:
+                return x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True), min=1e-12)
 
-        n_spk = cfg.n_speakers
-        if n_spk is None:
-            # over-cluster at the cap, merge same-speaker groups on the host
-            kmax = min(cfg.max_speakers, wk)
-            labels0 = kmeans(unit_rows(eigvecs[:, :kmax]), kmax).cpu().numpy()
-            n_spk, _ = merge_count(emb_kept, labels0, cfg.merge_tau, rel=cfg.merge_rel)
-        n_spk = max(1, min(n_spk, cfg.max_speakers))
-        if n_spk == 1:
-            labels = np.zeros(wk, dtype=np.int32)
-        else:
-            labels = kmeans(unit_rows(eigvecs[:, :n_spk]), n_spk).cpu().numpy().astype(np.int32)
+            n_spk = cfg.n_speakers
+            if n_spk is None:
+                # over-cluster at the cap, merge same-speaker groups on the host
+                kmax = min(cfg.max_speakers, wk)
+                labels0 = kmeans(unit_rows(eigvecs[:, :kmax]), kmax).cpu().numpy()
+                n_spk, _ = merge_count(emb_kept, labels0, cfg.merge_tau, rel=cfg.merge_rel)
+            n_spk = max(1, min(n_spk, cfg.max_speakers))
+            if n_spk == 1:
+                labels = np.zeros(wk, dtype=np.int32)
+            else:
+                labels = kmeans(unit_rows(eigvecs[:, :n_spk]),
+                                n_spk).cpu().numpy().astype(np.int32)
         if cfg.resegment and n_spk > 1:
             from ..cluster.resegment import resegment
 
@@ -232,7 +236,7 @@ class LongformDiarizer:
         # full-length label track: -1 marks windows the gate dropped
         full_labels = np.full(w, -1, dtype=np.int32)
         full_labels[kept_idx] = labels
-        stage("labels")
+        lap("labels")
         return {
             "segments": renamed,
             "n_speakers": int(n_spk),

@@ -3,9 +3,11 @@
 The counterpart of ``sdtk_tpu/utils/audio.py``, with its decoders by
 extension (``_DECODERS``) and its tiers:
 
-- WAV: RIFF parsed by hand (PCM 8/16/24/32-bit and IEEE float 32/64) in
-  NumPy (the JAX package's C++ reader is not built by the port; it gives
-  the same samples);
+- WAV: read, mixed down and resampled by the host library's C++ reader
+  (``csrc/host/audioio.cc``, the JAX package's: a 16-tap Hann-windowed
+  sinc polyphase resampler) where ``load_audio`` asks for mono, as the
+  JAX package's does; otherwise RIFF parsed by hand (PCM 8/16/24/32-bit
+  and IEEE float 32/64) in NumPy;
 - FLAC: first party (``utils/flacio.py``);
 - MPEG audio (.mp3 .mp2 .mpga): the first-party Layer I/II decoder
   (``utils/mpegaudio.py``), then libmpg123 (``utils/syscodec.py``), then
@@ -16,15 +18,15 @@ extension (``_DECODERS``) and its tiers:
 A codec the host lacks raises :class:`AudioFormatError` with the reason,
 which speaker-process records as ``unsupported_format``.  Samples are
 mixed down to mono, scaled to [-1, 1) as the JAX package's decoders do,
-and resampled with ``scipy.signal.resample_poly`` when the rate is not
-the target.
+and resampled when the rate is not the target: by the C++ reader on its
+route, else with ``scipy.signal.resample_poly``.  ``load_audio_batch``
+decodes WAVs on the host library's thread pool.
 """
 
 from __future__ import annotations
 
 import struct
 import wave
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from math import gcd
 from pathlib import Path
@@ -184,13 +186,46 @@ def _decoder(path: Path):
     return decoder
 
 
+def _load_audio_native(path: Path, target_sr: int | None) -> tuple[np.ndarray, int] | None:
+    """The host library's WAV decode, mono mixdown and resampling; None
+    where the Python path must read the file: no library (only under
+    ``SDTK_NO_NATIVE_BUILD=1``), or the file cannot be opened (rc 1).  A
+    WAV the C++ reader rejects (rc 2) raises :class:`AudioFormatError`."""
+    import ctypes
+
+    from .nativelib import get_lib
+
+    lib = get_lib()
+    if lib is None:
+        return None
+    data = ctypes.POINTER(ctypes.c_float)()
+    n = ctypes.c_int64()
+    sr = ctypes.c_int()
+    rc = lib.sdtk_decode_wav(str(path).encode(), int(target_sr or 0), ctypes.byref(data),
+                             ctypes.byref(n), ctypes.byref(sr))
+    if rc != 0:
+        if rc == 2:
+            raise AudioFormatError(f"unsupported or corrupt WAV: {path}")
+        return None
+    try:
+        x = np.ctypeslib.as_array(data, shape=(n.value,)).copy()
+    finally:
+        lib.sdtk_free(data)
+    return x, sr.value
+
+
 def load_audio(path: str | Path, target_sr: int = TARGET_SR, mono: bool = True
                ) -> tuple[np.ndarray, int]:
     """Decode → mono mixdown (unless ``mono`` is False: (N, channels)) →
     resample to ``target_sr`` (0 keeps the file's rate); returns (float32
-    samples, rate)."""
+    samples, rate).  A mono WAV goes through the host library."""
     path = Path(path)
-    x, sr = _decoder(path)(path)
+    decoder = _decoder(path)
+    if mono and path.suffix.lower() == ".wav":
+        native = _load_audio_native(path, target_sr)
+        if native is not None:
+            return native
+    x, sr = decoder(path)
     if mono:
         x = x.mean(axis=1)
     if target_sr and sr != target_sr:
@@ -202,13 +237,36 @@ def load_audio(path: str | Path, target_sr: int = TARGET_SR, mono: bool = True
 
 def load_audio_batch(paths: list[str | Path], target_sr: int = TARGET_SR, n_threads: int = 0
                      ) -> list[np.ndarray]:
-    """:func:`load_audio` of every path on a pool of threads (``n_threads``
-    0: one a path, at most 8), in the order given."""
-    if not paths:
-        return []
-    workers = n_threads or min(8, len(paths))
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        return list(pool.map(lambda p: load_audio(p, target_sr)[0], paths))
+    """Mono samples at ``target_sr`` of every path, in the order given:
+    decoded on the host library's thread pool (``n_threads`` 0: one a
+    core), each file it cannot read (another container, a WAV subformat it
+    rejects) through :func:`load_audio`; without the library, every path
+    through :func:`load_audio`."""
+    import ctypes
+
+    from .nativelib import get_lib
+
+    lib = get_lib() if paths else None
+    if lib is None:
+        return [load_audio(p, target_sr)[0] for p in paths]
+    n = len(paths)
+    c_paths = (ctypes.c_char_p * n)(*[str(p).encode() for p in paths])
+    datas = (ctypes.POINTER(ctypes.c_float) * n)()
+    lens = (ctypes.c_int64 * n)()
+    srs = (ctypes.c_int * n)()
+    errs = (ctypes.c_int * n)()
+    lib.sdtk_decode_wav_batch(c_paths, n, int(target_sr or 0), int(n_threads), datas, lens,
+                              srs, errs)
+    out: list[np.ndarray] = []
+    for i in range(n):
+        if errs[i] != 0:
+            out.append(load_audio(paths[i], target_sr)[0])
+            continue
+        try:
+            out.append(np.ctypeslib.as_array(datas[i], shape=(lens[i],)).copy())
+        finally:
+            lib.sdtk_free(datas[i])
+    return out
 
 
 def probe(path: str | Path) -> AudioInfo:

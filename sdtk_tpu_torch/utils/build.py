@@ -12,6 +12,13 @@ orchestrator's workers do): one lock serializes building and loading, so
 each library is compiled once per process, and each compile writes a
 temporary file named by process and thread before its atomic rename, so
 compiles running in several processes never share one.
+
+The host library (``csrc/host/*.cc``: the WAV reader and resampler, the
+threaded loader and BLAKE3, under the JAX package's C ABI) is built the
+same way by ``g++`` (``$CXX`` if set) with the JAX package's
+``native/Makefile`` flags into ``_build/libsdtk_native-<hash>.so``
+(:func:`build_host`); a missing or failing compiler raises
+:class:`KernelError`.
 """
 
 from __future__ import annotations
@@ -28,6 +35,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+HOST_SRC = CSRC / "host"
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-march=native", "-shared")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.RLock()  # held across build and load; load_library calls build
@@ -103,6 +113,61 @@ def load_library(name: str) -> ctypes.CDLL:
             build([name])
             _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return _loaded[name]
+
+
+def _host_sources() -> list[Path]:
+    return sorted(HOST_SRC.glob("*.cc"))
+
+
+def _cpu_identity() -> bytes:
+    """The CPU's model and feature flags: ``-march=native`` compiles for
+    them, so a library built on another CPU gets another name."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return b""
+    keys = (b"model name", b"flags", b"Features", b"CPU part")
+    return b"\n".join(sorted({ln for ln in lines if ln.split(b":")[0].strip() in keys}))
+
+
+def host_library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _host_sources():
+        h.update(src.name.encode() + src.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode() + _cpu_identity())
+    return BUILD_DIR / f"libsdtk_native-{h.hexdigest()[:12]}.so"
+
+
+def cxx() -> str:
+    cand = os.environ.get("CXX") or "g++"
+    found = shutil.which(cand)
+    if found is None:
+        raise KernelError(f"C++ compiler {cand!r} not found ($CXX, else g++ on PATH): "
+                          f"cannot build the host library")
+    return found
+
+
+def build_host() -> Path:
+    """Compile ``csrc/host/*.cc`` into the host library unless it is
+    built; its path."""
+    with _lock:
+        out = host_library_path()
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        compiler = cxx()
+        try:
+            proc = subprocess.run([compiler, *HOST_FLAGS, "-o", str(tmp),
+                                   *map(str, _host_sources())],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise KernelError(f"{compiler} failed for the host library:\n{proc.stdout}")
+            os.replace(tmp, out)  # atomic: no reader sees half a file
+        finally:
+            tmp.unlink(missing_ok=True)
+        return out
 
 
 def launch(name: str, argtypes: list, *args) -> None:

@@ -1,15 +1,19 @@
 """First-party BLAKE3 content addressing (a copy of the JAX package's
-``sdtk_tpu/utils/hashing.py`` without its native library, which is built
-into that package).
+``sdtk_tpu/utils/hashing.py``).
 
-Two implementations with identical digests: :func:`blake3_scalar`, plain
-Python, and :func:`blake3_numpy`, which compresses BLAKE3's independent
-1 KiB leaf chunks together as uint32 array operations.
-:func:`compute_b3sum` is the store's content key: the first 32 hex digits.
+Three implementations with identical digests: :func:`blake3_scalar`,
+plain Python; :func:`blake3_numpy`, which compresses BLAKE3's independent
+1 KiB leaf chunks together as uint32 array operations; and
+:func:`blake3_native`, the host library's C++ (``csrc/host/blake3.cc``).
+:func:`blake3` takes the native one from 4 096 bytes, NumPy where the
+library is not built (``SDTK_NO_NATIVE_BUILD=1``), and the scalar code
+below 4 096 bytes.  :func:`compute_b3sum` is the store's content key: the
+first 32 hex digits.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 from pathlib import Path
 
@@ -161,10 +165,27 @@ def blake3_numpy(data: bytes) -> bytes:
     return struct.pack("<8I", *_merge_tree(cvs))
 
 
+def blake3_native(data: bytes) -> bytes | None:
+    """BLAKE3 by the host library; None where it is not built."""
+    from .nativelib import get_lib
+
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = ctypes.create_string_buffer(32)
+    lib.sdtk_blake3(data, len(data), out)
+    return out.raw
+
+
 def blake3(data: bytes) -> bytes:
-    """One-shot BLAKE3 digest (32 bytes): :func:`blake3_numpy`, which runs
-    the scalar code for one chunk or less."""
-    return blake3_numpy(data)
+    """One-shot BLAKE3 digest (32 bytes), by the fastest implementation
+    at hand."""
+    if len(data) >= 4096:
+        d = blake3_native(data)
+        if d is not None:
+            return d
+        return blake3_numpy(data)
+    return blake3_scalar(data)
 
 
 def blake3_hex(data: bytes) -> str:

@@ -21,6 +21,7 @@ from sdtk_tpu.utils import flacio as jflac
 from sdtk_tpu.utils import mpegaudio as jmpeg
 from sdtk_tpu.utils import syscodec as jsys
 from sdtk_tpu_torch.utils import audio, avio, flacio, mpegaudio, syscodec
+from torch_jax_native import ensure_jax_native
 
 SR = 16000
 
@@ -109,12 +110,12 @@ def _write(path, x, ext):
 
 
 @pytest.mark.parametrize("ext", sorted(audio._DECODERS))
-def test_load_audio_equals_jax_for_every_container(ext, tmp_path, monkeypatch):
+def test_load_audio_equals_jax_for_every_container(ext, tmp_path):
     """``load_audio`` at 16 kHz, at the file's rate and resampled to 8 kHz,
     and ``probe``, equal the JAX package's for each container this host can
-    write (exact).  The JAX side runs its NumPy WAV reader: the port does
-    not build the C++ one, whose resampler is not SciPy's."""
-    monkeypatch.setattr(jaudio, "_load_audio_native", lambda path, target_sr: None)
+    write (exact).  Both packages read WAV through their C++ reader, each
+    built from the same source with the same flags."""
+    ensure_jax_native()
     assert sorted(audio._DECODERS) == sorted(jaudio._DECODERS)
     path = tmp_path / f"clip{ext}"
     if not _write(path, _signal(1.2, seed=len(ext)), ext):

@@ -29,13 +29,11 @@ from sdtk_tpu_torch.store import migrations
 from sdtk_tpu_torch.utils import hashing
 
 REPO = Path(__file__).resolve().parent.parent
-# JAX-only plumbing, which the port has no use for: the TPU backend, JAX's
-# compile cache and profiler, the C++ library's loader and its BLAKE3
-# (the port hashes in NumPy), and the Pallas kernels of ops/research/
-# (K1, K2 and K4 are the port's CUDA kernels).
-JAX_ONLY_FILES = {"backends/tpu.py", "utils/jaxcache.py", "utils/profiling.py",
-                  "utils/nativelib.py"}
-JAX_ONLY_NAMES = {"utils/hashing.py": {"blake3_native"}}
+# JAX-only plumbing, which the port has no use for: the TPU backend (the
+# port's is backends/gpu.py), JAX's compile cache, and the Pallas kernels
+# of ops/research/ (K1, K2 and K4 are the port's CUDA kernels).
+JAX_ONLY_FILES = {"backends/tpu.py", "utils/jaxcache.py"}
+JAX_ONLY_NAMES: dict[str, set[str]] = {}
 # kernels the port names otherwise: K3 and the top-k's plain decomposition
 RENAMED = {"ops/cosine.py": {"cosine_pallas": "cosine"},
            "ops/topk.py": {"identify_topk_xla": "identify_topk_plain"}}
