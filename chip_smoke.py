@@ -179,6 +179,20 @@ any failure raises and exits non-zero:
              identified speakers equal to the CPU's, K1 launched),
              ``evals.streaming --der --heldout`` (exit 0, DER recorded) and
              ``evals.warmup`` (exit 0, every library under ``_build``);
+36. speechbrain — a seeded spkrec-ecapa-voxceleb checkpoint directory at the
+             published width (ECAPA c1024, MFA 3072) converted by
+             ``python -m sdtk_tpu_torch.tools.convert_ecapa --verify`` on
+             the meeting (f32 tower on the card vs the f64 reference,
+             cosine >= 0.9999); K1 at SpeechBrain's frontend (n_fft 400,
+             Hamming, centered, dB) vs plain at (128, 16 000) and
+             (32, 48 000); with ``SDTK_MODEL_PATH`` on the file: the tower
+             vs f32 on the CPU, ms per 128 x 1 s chunk beside the c512's,
+             peak memory, share of the bf16 peak, ``cli.diarize`` (rc 0, K1
+             launched) and identify at N = 2 048 on both routes (scores
+             within 1e-5, K2 and K3 launched);
+37. mfu    — ``python -m sdtk_tpu_torch.evals.mfu_probe`` (frontend, tower,
+             full at batch 1024 x 3 s, 10 chained steps): every share of
+             the bf16 peak in (0, 1], K1 launched;
 
 The kernel phase holds all four kernels (log-mel from the waveform, the
 cosine scores, the fused identify top-k, log-mel from frames) at the
@@ -226,7 +240,7 @@ PEAK_BYTES = 3.35e12
 # where that flips a bf16 rounding of a power bin (one bf16 ulp = 0.4 %),
 # a narrow low mel band (1-2 bins) moves by up to ~4e-3 in ln.  The bars
 # leave 10x room; dB is 10/ln(10) times the ln scale.
-TOL = {"bf16-ln": 0.05, "bf16-db-fmin0": 0.25, "f32-ln": 2e-3}
+TOL = {"bf16-ln": 0.05, "bf16-db-fmin0": 0.25, "f32-ln": 2e-3, "bf16-speechbrain": 0.25}
 # Cosine and identify top-k: f32-accurate products on both sides (3xTF32 in
 # the kernels, f32 in the plain versions), summed in another order, a few
 # f32 ulps of a cosine.
@@ -254,19 +268,11 @@ def emit(obj: dict) -> None:
 
 
 def cuda_ms(fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median device time of ``fn`` over ``reps`` launches (CUDA events)."""
-    import torch
+    """Median device time of ``fn`` over ``reps`` launches (CUDA events,
+    ``tools/measure.py:event_ms``)."""
+    from sdtk_tpu_torch.tools.measure import event_ms
 
-    for _ in range(warmup):
-        fn()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(reps)]
-    for a, b in events:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events)
+    return event_ms(fn, reps, warmup)
 
 
 def trace_device_us(prof, kernel: str = "") -> float:
@@ -381,15 +387,20 @@ def speechlike_batch(b: int, n: int, seed: int):
 def k1_timing(x, cfg, coeff: float) -> tuple[float, dict]:
     """K1's raw output on (B, N) ``x`` at preemphasis ``coeff`` against its
     plain version: max|Δ|, and the kernel's, the plain version's and the
-    library's times beside the bound."""
+    library's times beside the bound.  For a centered ``cfg`` the kernel
+    takes what the wrapper gives it: ``x`` preemphasized, zero-padded by
+    win/2 on each side, and coefficient 0."""
+    from dataclasses import replace
+
     import torch
 
     from sdtk_tpu_torch.ops import fbank, fbank_wave
-    from sdtk_tpu_torch.ops.fbank import FrontendConfig
 
+    if cfg.center:
+        x, coeff = fbank.pad_centered(fbank.preemphasize(x, coeff), cfg), 0.0
     raw_err = float((fbank_wave.log_mel_wave_cuda(x, cfg, coeff)
                      - fbank_wave.log_mel_wave_plain(x, cfg, coeff)).abs().max())
-    f32 = FrontendConfig(compute_dtype="float32")
+    f32 = replace(cfg, compute_dtype="float32")
     win = torch.from_numpy(fbank.melbank.window(f32.win_length, f32.window)).to(x.device)
     mel = torch.from_numpy(fbank.melbank.mel_filterbank(
         f32.n_mels, f32.n_fft, f32.sample_rate, fmin=f32.mel_fmin)).to(x.device)
@@ -401,7 +412,7 @@ def k1_timing(x, cfg, coeff: float) -> tuple[float, dict]:
     def library():
         frames = fbank.preemphasize(x, coeff).unfold(1, f32.win_length, f32.hop_length)
         spec = torch.fft.rfft(frames * win, n=f32.n_fft)
-        return torch.log((spec.real ** 2 + spec.imag ** 2) @ mel + f32.log_floor)
+        return fbank.log_of_mel((spec.real ** 2 + spec.imag ** 2) @ mel, f32)
 
     b, n = x.shape
     t = fbank.melbank.num_frames(n, cfg.win_length, cfg.hop_length)
@@ -664,13 +675,16 @@ def read_launches(wrappers: dict) -> dict:
 
 
 def phase_identify(work: Path, device: str, phase: str = "identify",
-                   n_rows: int = IDENTIFY_N) -> dict:
+                   n_rows: int = IDENTIFY_N, named: bool = True,
+                   query_s: float = 45.0) -> dict:
     """The profile side on the card, through the entry points a user calls
     (``pipeline.identify``), with the bundled c512 checkpoint of the tower
     in use and its calibration, at ``n_rows`` profile rows of the tower's
     width.  Each query runs on the fused route (``SDTK_IDENTIFY_TOPK_N`` at
-    ``n_rows``) and on the dense route (above it).  Returns the launch
-    counts of the path."""
+    ``n_rows``) and on the dense route (above it).  ``named``: each voice
+    must come first and verify; without it (untrained weights) the two
+    routes must still agree, and verify is not called.  Queries are
+    ``query_s`` seconds long.  Returns the launch counts of the path."""
     import numpy as np
     import torch
 
@@ -687,7 +701,7 @@ def phase_identify(work: Path, device: str, phase: str = "identify",
     wavs = {}
     for sid, v in voices.items():
         save_wav(work / f"{sid}-enroll.wav", synth_utterance(v, 1, 12.0))
-        save_wav(work / f"{sid}-query.wav", synth_utterance(v, 99, 45.0))  # held out
+        save_wav(work / f"{sid}-query.wav", synth_utterance(v, 99, query_s))  # held out
         wavs[sid] = (work / f"{sid}-enroll.wav", work / f"{sid}-query.wav")
     backend = get_backend("gpu", device=device)
     dim = backend.embedding_dim
@@ -727,7 +741,8 @@ def phase_identify(work: Path, device: str, phase: str = "identify",
             identify_s[route][sid] = time.perf_counter() - t0
         by_route[route] = {k: v - before[k] for k, v in read_launches(wrappers).items()}
     os.environ.pop("SDTK_IDENTIFY_TOPK_N", None)  # verify takes the route N gives it
-    verify = {sid: ident.verify(sid, query, device=device) for sid, (_, query) in wavs.items()}
+    verify = {sid: ident.verify(sid, query, device=device)
+              for sid, (_, query) in wavs.items() if named}
     torch.cuda.synchronize()
     launches = read_launches(wrappers)
 
@@ -759,11 +774,11 @@ def phase_identify(work: Path, device: str, phase: str = "identify",
     for sid in wavs:
         fused, dense = top["fused"][sid][:1] or [(None, None)], top["dense"][sid][:1] or [(None, None)]
         (f_id, f_score), (d_id, d_score) = fused[0], dense[0]
-        if f_id != sid or d_id != sid:
-            raise AssertionError(f"{sid} not ranked first: fused {f_id}, dense {d_id}")
-        if abs(f_score - d_score) > SCORE_TOL:
+        if f_id != d_id or (named and f_id != sid):
+            raise AssertionError(f"{sid} first: fused {f_id}, dense {d_id}")
+        if f_id is not None and abs(f_score - d_score) > SCORE_TOL:
             raise AssertionError(f"{sid}: fused {f_score} vs dense {d_score}")
-        if not verify[sid]["match"]:
+        if named and not verify[sid]["match"]:
             raise AssertionError(f"verify did not match {sid}: {verify[sid]}")
     if raw_err > SCORE_TOL:
         raise AssertionError(f"raw survivor scores: fused vs dense max|d| {raw_err}")
@@ -3134,6 +3149,219 @@ def phase_evals(work: Path, device: str) -> dict:
     return {k: id_launches[k] + st_launches[k] for k in id_launches}
 
 
+SB_SEED = 16  # the seeded SpeechBrain checkpoint of phase speechbrain
+# spkrec-ecapa-voxceleb: (channels, Res2 scale, SE bottleneck, attention, MFA, emb, n_mels)
+SB_SHAPE = (1024, 8, 128, 128, 3072, 192, 80)
+SB_DILATIONS = (2, 3, 4)
+SB_VERIFY_COS = 0.9999  # the converter's --verify: f32 tower on the card vs f64 reference
+SB_IDENTIFY_N = 2048
+# 72 s queries: 47 windows of 3 s, so the dense route's 47 x 2 048 x 192
+# products pass the 2**24 below which identify scores on the host
+SB_QUERY_S = 72.0
+SB_HYPERPARAMS = """\
+# ############################################################################
+# Model: ECAPA big for Speaker verification (spkrec-ecapa-voxceleb layout)
+# ############################################################################
+
+n_mels: 80
+
+pretrained_path: speechbrain/spkrec-ecapa-voxceleb
+
+compute_features: !new:speechbrain.lobes.features.Fbank
+    n_mels: !ref <n_mels>
+
+mean_var_norm: !new:speechbrain.processing.features.InputNormalization
+    norm_type: sentence
+    std_norm: False
+
+embedding_model: !new:speechbrain.lobes.models.ECAPA_TDNN.ECAPA_TDNN
+    input_size: !ref <n_mels>
+    channels: [1024, 1024, 1024, 1024, 3072]
+    kernel_sizes: [5, 3, 3, 3, 1]
+    dilations: [1, 2, 3, 4, 1]
+    attention_channels: 128
+    lin_neurons: 192
+
+mean_var_norm_emb: !new:speechbrain.processing.features.InputNormalization
+    norm_type: global
+    std_norm: False
+"""
+
+
+def speechbrain_state_dict(seed: int) -> dict:
+    """A SpeechBrain ECAPA state dict at the published shapes (20.8 M
+    parameters), its weights drawn with std 1/sqrt(fan_in), the scale of
+    trained weights, and BatchNorm statistics near the identity.
+    ``tests/test_convert.py``'s 0.2·randn grows activations by
+    ~0.2·sqrt(fan_in) a layer, ~6x at C = 1024 and more through the
+    3 072-wide layers: the bf16 tower would part from f32 for that alone,
+    and the comparison would measure nothing."""
+    import torch
+
+    c, scale, se, attn, mfa, emb, n_mels = SB_SHAPE
+    g = torch.Generator().manual_seed(seed)
+
+    def conv(prefix, o, i, k):
+        return {f"{prefix}.weight": torch.randn(o, i, k, generator=g) / math.sqrt(i * k),
+                f"{prefix}.bias": 0.05 * torch.randn(o, generator=g)}
+
+    def bn(prefix, n):
+        return {f"{prefix}.weight": 1.0 + 0.1 * torch.randn(n, generator=g),
+                f"{prefix}.bias": 0.1 * torch.randn(n, generator=g),
+                f"{prefix}.running_mean": 0.1 * torch.randn(n, generator=g),
+                f"{prefix}.running_var": 1.0 + 0.1 * torch.rand(n, generator=g),
+                f"{prefix}.num_batches_tracked": torch.tensor(100_000)}
+
+    sd = conv("blocks.0.conv.conv", c, n_mels, 5) | bn("blocks.0.norm.norm", c)
+    width = c // scale
+    for i in range(1, len(SB_DILATIONS) + 1):
+        p = f"blocks.{i}"
+        sd |= conv(f"{p}.tdnn1.conv.conv", c, c, 1) | bn(f"{p}.tdnn1.norm.norm", c)
+        for j in range(scale - 1):
+            sd |= conv(f"{p}.res2net_block.blocks.{j}.conv.conv", width, width, 3)
+            sd |= bn(f"{p}.res2net_block.blocks.{j}.norm.norm", width)
+        sd |= conv(f"{p}.tdnn2.conv.conv", c, c, 1) | bn(f"{p}.tdnn2.norm.norm", c)
+        sd |= conv(f"{p}.se_block.conv1.conv", se, c, 1)
+        sd |= conv(f"{p}.se_block.conv2.conv", c, se, 1)
+    sd |= conv("mfa.conv.conv", mfa, len(SB_DILATIONS) * c, 1) | bn("mfa.norm.norm", mfa)
+    sd |= conv("asp.tdnn.conv.conv", attn, 3 * mfa, 1) | bn("asp.tdnn.norm.norm", attn)
+    sd |= conv("asp.conv.conv", mfa, attn, 1) | bn("asp_bn.norm", 2 * mfa)
+    return sd | conv("fc.conv", emb, 2 * mfa, 1)
+
+
+def phase_speechbrain(work: Path, wav, c512_engine) -> dict:
+    """The SpeechBrain ECAPA path at the published width: a seeded
+    checkpoint directory in the spkrec-ecapa-voxceleb layout (sentence input
+    norm, embedding-norm stats, classifier files to ignore) converted by
+    ``python -m sdtk_tpu_torch.tools.convert_ecapa --verify`` in a child
+    process on the meeting WAV (the f32 tower on the card against the f64
+    reference, cosine >= SB_VERIFY_COS); K1 at SpeechBrain's frontend (n_fft
+    400, Hamming, centered, dB, 0 Hz) against its plain version at
+    (128, 16 000) and (32, 48 000); then, with ``SDTK_MODEL_PATH`` on the
+    converted file: the engine's sidecar read (tower and frontend), the
+    tower against f32 on the CPU (``phase_tower``), ms per 128 x 1 s chunk
+    by events beside the c512 engine's on the same device-resident input,
+    peak memory, the share of the bf16 peak by the probe's FLOP count,
+    ``cli.diarize`` on the meeting (rc 0, an RTTM, K1 launched; random
+    weights, so no DER bar) and identify at N = 2 048 on both routes
+    (raw scores within SCORE_TOL, K2 and K3 launched).  Returns the launch
+    counts of the diarize and identify calls."""
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch.backends.base import get_backend
+    from sdtk_tpu_torch.cli import diarize as cli
+    from sdtk_tpu_torch.evals.mfu_probe import PEAK_FLOPS, ecapa_flops_per_window
+    from sdtk_tpu_torch.ops.fbank import FrontendConfig
+    from sdtk_tpu_torch.tools.measure import event_ms
+
+    start = time.perf_counter()
+    d = work / "spkrec-ecapa-voxceleb"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "hyperparams.yaml").write_text(SB_HYPERPARAMS)
+    torch.save(speechbrain_state_dict(SB_SEED), d / "embedding_model.ckpt")
+    g = torch.Generator().manual_seed(SB_SEED + 1)
+    torch.save({"count": 1000, "glob_mean": 0.1 * torch.randn(SB_SHAPE[5], generator=g)},
+               d / "mean_var_norm_emb.ckpt")
+    torch.save({"weight": torch.zeros(4, SB_SHAPE[5])}, d / "classifier.ckpt")
+    (d / "label_encoder.txt").write_text("'spk1' => 0\n")
+    out = work / "ecapatdnn-speechbrain.msgpack"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sdtk_tpu_torch.tools.convert_ecapa", str(d),
+                           "-o", str(out), "--verify", str(work / "meeting.wav")], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True,
+                          text=True, timeout=600)
+    convert_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"convert_ecapa exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    sidecar = json.loads(out.with_suffix(".config.json").read_text())
+
+    cfg = FrontendConfig(**sidecar["frontend"])
+    k1 = {f"{b}x{n}": k1_case("bf16-speechbrain", cfg, *speechlike_batch(b, n, seed=b + 16),
+                              "cuda")
+          for b, n in ((128, 16000), (32, 48000))}
+
+    os.environ["SDTK_MODEL_PATH"] = str(out)
+    try:
+        with tower("ecapa"):
+            eng = get_backend("gpu", device="cuda").engine
+            phase_tower(eng, wav, "tower-speechbrain")
+            chunk = torch.from_numpy(
+                np.stack([wav[i * 6000 : i * 6000 + 16000] for i in range(128)])).cuda()
+            lens = torch.full((128,), 16000, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            chunk_ms = event_ms(lambda: eng.embed(chunk, lens), reps=10, warmup=2)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            c512_ms = event_ms(lambda: c512_engine.embed(chunk, lens), reps=10, warmup=2)
+            flops = 128 * ecapa_flops_per_window(eng.model.cfg, cfg.num_frames(16000))
+
+            wrappers = reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main([str(work / "meeting.wav"), "--format", "rttm", "-q",
+                           "-o", str(work / "meeting-speechbrain.rttm")])
+            diarize_s = time.perf_counter() - t0
+            cli_launches = read_launches(wrappers)
+            rttm = (work / "meeting-speechbrain.rttm").read_text().splitlines()
+            id_launches = phase_identify(d, "cuda", "identify-speechbrain", SB_IDENTIFY_N,
+                                         named=False, query_s=SB_QUERY_S)
+    finally:
+        os.environ.pop("SDTK_MODEL_PATH", None)
+    mcfg = eng.model.cfg
+    emit({"phase": "speechbrain", "source_params": report["source_params"],
+          "model": report["model"], "frontend": sidecar["frontend"],
+          "directory_extras": report.get("directory_extras"), "verify": report["verify"],
+          "verify_bar": SB_VERIFY_COS, "convert_seconds": convert_s,
+          "k1": {k: {key: v[key] for key in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                             "library_ms", "bound_ms", "bound_by")}
+                 for k, v in k1.items()},
+          "engine": {"params": eng.params_source, "channels": mcfg.channels,
+                     "mfa_channels": mcfg.mfa_channels, "mfa_bn": mcfg.mfa_bn,
+                     "asp_tdnn": mcfg.asp_tdnn, "window": eng.cfg.window, "n_fft": eng.cfg.n_fft},
+          "chunk": [128, 16000], "frames": cfg.num_frames(16000), "ms_per_chunk": chunk_ms,
+          "c512_ms_per_chunk": c512_ms, "peak_memory_gb": peak_gb, "tower_flops": flops,
+          "tower_bound_ms": flops / PEAK_FLOPS * 1e3, "mfu": flops / (chunk_ms / 1e3) / PEAK_FLOPS,
+          "diarize_rc": rc, "diarize_seconds": diarize_s, "rttm_lines": len(rttm),
+          "rttm_speakers": len({ln.split()[7] for ln in rttm}), "diarize_launches": cli_launches,
+          "wall_seconds": time.perf_counter() - start})
+    if report["verify"]["cosine_similarity"] < SB_VERIFY_COS or report["verify"]["device"] != "cuda":
+        raise AssertionError(f"speechbrain: --verify {report['verify']}")
+    if (eng.cfg.window, eng.cfg.n_fft, mcfg.channels, mcfg.mfa_channels) != ("hamming", 400,
+                                                                             1024, 3072):
+        raise AssertionError(f"speechbrain: the engine did not take the sidecar: {eng.cfg} {mcfg}")
+    if rc != 0 or not rttm or cli_launches["log_mel_wave"] <= 0:
+        raise AssertionError(f"speechbrain: diarize rc {rc}, {len(rttm)} RTTM lines, "
+                             f"launches {cli_launches}")
+    return {k: cli_launches[k] + id_launches[k] for k in cli_launches}
+
+
+MFU_ARGS = ["--stages", "frontend,tower,full", "--batches", "1024", "--iters", "10"]
+
+
+def phase_mfu() -> dict:
+    """``python -m sdtk_tpu_torch.evals.mfu_probe`` in a child process, cut
+    from the JAX script's batches 512, 1024 and 2048 to 1024 (the time
+    limit): each stage's ms, audio-s per s and share of the bf16 peak, which
+    must lie in (0, 1].  Returns the child's launch counts."""
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sdtk_tpu_torch.evals.mfu_probe", *MFU_ARGS],
+                          cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"mfu_probe exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit({"phase": "mfu", "args": MFU_ARGS, "rows": last["rows"], "device": last["device"],
+          "peak_flops": last["peak_flops"], "launches": last["launches"],
+          "wall_seconds": time.perf_counter() - start})
+    bad = [r for r in last["rows"] if not (isinstance(r["mfu"], float) and 0 < r["mfu"] <= 1)]
+    if bad or len(last["rows"]) != 3:
+        raise AssertionError(f"mfu: rows out of (0, 1]: {bad or last['rows']}")
+    if last["launches"]["log_mel_wave"] <= 0:
+        raise AssertionError("mfu: the probe did not launch log_mel_wave")
+    return {name: last["launches"].get(name, 0) for name in reset_launches()}
+
+
 def main() -> int:
     if not (ROOT / "sdtk_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -3262,6 +3490,8 @@ def main() -> int:
     path_launches["native"] = phase_native(out_dir, wav, ref, "cuda")
     path_launches["profile"] = phase_profile(out_dir, diarizer, wav, "cuda")
     path_launches["evals"] = phase_evals(out_dir, "cuda")
+    path_launches["speechbrain"] = phase_speechbrain(out_dir, wav, diarizer.backend.engine)
+    path_launches["mfu"] = phase_mfu()
 
     for row in kernel_rows:
         if row["path"] is not None:

@@ -27,13 +27,14 @@ Prints one JSON line; exits 0 when the held-out window accuracy is ≥ 0.9.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import sys
 import time
 
 import numpy as np
 import torch
+
+from ..utils.device import full_f32
 
 SR = 16000
 WIN_S = 1.5
@@ -123,31 +124,15 @@ def vad_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
     return (per * w * m).sum() / torch.clamp((w * m).sum(), min=1.0)
 
 
-@contextlib.contextmanager
-def full_f32():
-    """f32 convolutions and products in full f32 on the card (TF32 off
-    inside, the caller's setting restored after).  The net amplifies
-    rounding: a frame whose ReLU outputs are nearly all zero gives a
-    LayerNorm variance far below ε = 1e-6, and rsqrt(var + ε) ~ 1e3 scales
-    what TF32 would round (10-bit mantissas) into the gradients of conv1.
-    The model is ~20k parameters, so f32 costs the step nothing to speak
-    of."""
-    flags = torch.backends.cudnn, torch.backends.cuda.matmul
-    before = [f.allow_tf32 for f in flags]
-    for f in flags:
-        f.allow_tf32 = False
-    try:
-        yield
-    finally:
-        for f, v in zip(flags, before):
-            f.allow_tf32 = v
-
-
 def vad_update(model, optimizer, feats: torch.Tensor, mask: torch.Tensor,
                labels: torch.Tensor, pos_weight: float) -> torch.Tensor:
     """The net, the loss, its backward and one ``optimizer`` step on
     features already made, in full f32.  Returns the loss (before the
     update)."""
+    # The net amplifies rounding: a frame whose ReLU outputs are nearly all zero
+    # gives a LayerNorm variance far below ε = 1e-6, and rsqrt(var + ε) ~ 1e3
+    # scales what TF32 would round (10-bit mantissas) into the gradients of
+    # conv1.  The model is ~20k parameters, so f32 costs the step nothing.
     with full_f32():
         loss = vad_loss(model(feats), labels, mask, pos_weight)
         optimizer.zero_grad(set_to_none=True)

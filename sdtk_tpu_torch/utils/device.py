@@ -13,6 +13,8 @@ and degrades on everything else.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from .build import KernelError
@@ -29,3 +31,19 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the port on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def full_f32():
+    """float32 convolutions and products in full float32 on the card: TF32
+    off inside (cuDNN's is on by default), the caller's setting restored
+    after."""
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f, v in zip(flags, before):
+            f.allow_tf32 = v

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from sdtk_tpu_torch.ops import cosine, fbank, fbank_frames, fbank_wave, topk, topk_fused
+from sdtk_tpu_torch.tools.convert_ecapa import SB_FRONTEND
 
 pytestmark = pytest.mark.cuda
 
@@ -39,13 +40,16 @@ def _signal(b, n, seed=0):
 # (1, 400) is one frame; (32, 48000) the identify path's chunk of 3 s windows;
 # (16, 24000) the streaming path's chunk of 1.5 s windows; (1024, 48000) the
 # embed + cluster batch; (200, 400) and (40, 1000) put 128 and 26 waveform rows
-# into one tile of frames.
+# into one tile of frames.  "speechbrain" is a converted SpeechBrain tower's
+# frontend: n_fft 400 (201 bins, the last of 7 chunks partial), Hamming,
+# centered, dB from 0 Hz, floor 1e-10.
 @pytest.mark.parametrize("cfg,tol", [
     (fbank.FrontendConfig(), 0.05),
     (fbank.FrontendConfig(log_scale="db", mel_fmin=0.0), 0.25),
     (fbank.FrontendConfig(compute_dtype="float32"), 2e-3),
     (fbank.FrontendConfig(center=True, preemphasis=0.0), 0.05),
-], ids=["bf16", "bf16-db-fmin0", "f32", "center-nopreemph"])
+    (fbank.FrontendConfig(**SB_FRONTEND), 0.25),
+], ids=["bf16", "bf16-db-fmin0", "f32", "center-nopreemph", "speechbrain"])
 @pytest.mark.parametrize("shape", [(3, 4000), (128, 16000), (32, 48000), (1, 400), (200, 400),
                                    (40, 1000), (16, 24000), (1024, 48000)])
 def test_log_mel_wave_kernel_matches_plain(cuda, cfg, tol, shape):
