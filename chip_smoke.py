@@ -193,6 +193,21 @@ any failure raises and exits non-zero:
 37. mfu    — ``python -m sdtk_tpu_torch.evals.mfu_probe`` (frontend, tower,
              full at batch 1024 x 3 s, 10 chained steps): every share of
              the bf16 peak in (0, 1], K1 launched;
+38. scaling — ``evals.benchmark_scaling`` on one rank in an NCCL group (a
+             spawned process) at full width (ECAPA c512, 1024 x 3 s, 3
+             chained steps after a warm-up): audio-s per s, peak memory,
+             K1 once a step;
+39. topk-scale — ``evals.benchmark_topk`` at its defaults (W 64, D 192,
+             k 64, bf16 profiles, N = 100 000 and 1 000 000): its hard gate
+             against the library decomposition passed, K2 launched and held
+             against its plain version at both N (survivors equal, 1e-5);
+40. frontend — ``evals.benchmark_frontend`` at (1024, 48 000): plain,
+             K4 on the framed copy and K1, their spot checks within 0.05;
+             K4's first path (launched at least once), and K4 held against
+             its plain version at that path's M = 305 152 with its times;
+41. decode-sweep — ``evals.benchmark_decode`` (16 WAVs of 30 s at
+             44.1 kHz): the C++ loader at 1, 2, 4 and every core against
+             the NumPy path; no kernel;
 
 The kernel phase holds all four kernels (log-mel from the waveform, the
 cosine scores, the fused identify top-k, log-mel from frames) at the
@@ -206,7 +221,8 @@ took 0.3470 ms on the device at (64, 100 000, 192) f32 (same card;
 PERF.md).  The cosine kernel does too; its CUDA-core predecessor took
 0.0234 ms on the device at (29, 8 192, 192) (same card; PERF.md).  Then
 the ``kernels`` line (each kernel's launches on its main path, and on
-every path driven, ``launches_by_path``, ``train`` among them), the card's
+every path driven, ``launches_by_path``, ``train`` among them; K4's row
+is its ``frontend`` path's shape), the card's
 name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -225,15 +241,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3.
-# "tf32x3" is f32-accurate work at the card's fastest route for it: three
-# TF32 tensor-core products (3xTF32) per f32 product, 495 / 3 TFLOP/s.
-# "tf32x2" is the same with one operand exact in TF32 (bf16 values, say):
-# two products, 495 / 2 TFLOP/s.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3,
-              "tf32x2": 495e12 / 2}
-PEAK_BYTES = 3.35e12
 
 # Kernel vs plain, same inputs and compute dtype.  Both sum exact products
 # in f32 but in another order, so power values differ by a few f32 ulps;
@@ -334,13 +341,10 @@ def mma_counts() -> dict:
 
 
 def bound(nbytes: float, flops: float, dtype: str = "float32") -> dict:
-    """The least time the card could take: bytes over HBM rate against
-    operations over the peak rate of ``dtype``, whichever is larger."""
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+    """The least time the card could take (``tools/measure.py:bound``)."""
+    from sdtk_tpu_torch.tools.measure import bound as card_bound
+
+    return card_bound(nbytes, flops, dtype)
 
 
 def summary(name: str, source: str, replaces: str, row: dict, path: str | None) -> dict:
@@ -602,69 +606,76 @@ def phase_kernel_topk(device) -> dict:
                    rows[f"w32-n{IDENTIFY_N}-k192-float32"], "identify")
 
 
-def phase_kernel_frames(device) -> dict:
-    """K4: (M, 400) frames -> (M, 80) log-mel at the diarizer's frame count
-    (128 one-second windows -> M = 12 544), bf16 and f32 compute; in bf16
-    also at the identify chunk's frame count (32 x 298 = 9 536) and at
-    M = 65 (one tile and one frame).  No serving path calls it."""
+def k4_case(frames, name: str, config: str, reps: int = 30) -> dict:
+    """K4 on (M, 400) ``frames`` against its plain version at ``TOL[name]``
+    (``name`` a config of ``TOL``), with the kernel's, the plain version's
+    and the library's times (``reps`` launches each) beside the bound;
+    emits the row."""
     import torch
 
     from sdtk_tpu_torch.ops import fbank, fbank_frames
     from sdtk_tpu_torch.ops.fbank import FrontendConfig
 
-    fbank_frames.fbank_frames.launches = 0  # K4 has no path: its entry counts this phase
-    configs = {"bf16-ln": FrontendConfig(), "f32-ln": FrontendConfig(compute_dtype="float32")}
-    f32 = configs["f32-ln"]
-    win = torch.from_numpy(fbank.melbank.window(400, f32.window)).to(device)
+    cfg = FrontendConfig(compute_dtype="float32" if name.startswith("f32") else "bfloat16")
+    f32 = FrontendConfig(compute_dtype="float32")
+    win = torch.from_numpy(fbank.melbank.window(400, f32.window)).to(frames.device)
     mel = torch.from_numpy(fbank.melbank.mel_filterbank(
-        f32.n_mels, f32.n_fft, f32.sample_rate, fmin=fbank_frames.JAX_MEL_FMIN)).to(device)
-    rows = {}
+        f32.n_mels, f32.n_fft, f32.sample_rate, fmin=fbank_frames.JAX_MEL_FMIN)).to(frames.device)
+    m = frames.shape[0]
+    got = fbank_frames.fbank_frames_cuda(frames, cfg)
+    want = fbank_frames.fbank_frames_plain(frames, cfg)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    finite = bool(torch.isfinite(got).all())
+    del got, want
+    if not finite or err > TOL[name]:
+        raise AssertionError(f"fbank_frames {name} M={m}: kernel vs plain max|d| {err}")
+
+    def kernel():
+        return fbank_frames.fbank_frames_cuda(frames, cfg)
+
+    def library():
+        spec = torch.fft.rfft(frames * win, n=f32.n_fft)
+        return torch.log((spec.real ** 2 + spec.imag ** 2) @ mel + f32.log_floor)
+
+    n_freqs = cfg.n_fft // 2 + 1
+    item = 2 if cfg.compute_dtype == "bfloat16" else 4
+    nbytes = m * 400 * 4 + m * cfg.n_mels * 4 + (2 * 400 * n_freqs + n_freqs * cfg.n_mels) * item
+    flops = 2 * m * 400 * n_freqs * 2 + 2 * m * n_freqs * cfg.n_mels
+    row = {"shape": [m, 400], "max_abs_err": err, "tol": TOL[name],
+           "ms": cuda_ms(kernel, reps=reps),
+           "plain_ms": cuda_ms(lambda: fbank_frames.fbank_frames_plain(frames, cfg), reps=reps),
+           "library_ms": cuda_ms(library, reps=reps), **bound(nbytes, flops, cfg.compute_dtype)}
+    row = with_device_time(row, kernel, "log_mel_")
+    emit({"phase": "kernel", "name": "fbank_frames", "config": config,
+          "library": "torch.fft.rfft + mel matmul (f32)", **row})
+    return row
+
+
+def phase_kernel_frames(device) -> None:
+    """K4: (M, 400) frames -> (M, 80) log-mel at the diarizer's frame count
+    (128 one-second windows -> M = 12 544), bf16 and f32 compute; in bf16
+    also at the identify chunk's frame count (32 x 298 = 9 536) and at
+    M = 65 (one tile and one frame).  Its path is ``evals.benchmark_frontend``
+    (phase ``frontend``, which holds it at that path's M = 305 152)."""
+    import torch
+
+    from sdtk_tpu_torch.ops import fbank
+
     for name, (b, n), m in (("bf16-ln", (128, 16000), 12544), ("f32-ln", (128, 16000), 12544),
                             ("bf16-ln", (32, 48000), 9536), ("bf16-ln", (1, 16000), 65)):
-        cfg = configs[name]
         x = torch.from_numpy(speechlike_batch(b, n, seed=b)[0]).to(device)
         frames = fbank.preemphasize(x, 0.97).unfold(1, 400, 160).reshape(-1, 400)[:m].contiguous()
         if frames.shape[0] != m:
             raise AssertionError(f"expected {m} frames, got {frames.shape[0]}")
-        got = fbank_frames.fbank_frames_cuda(frames, cfg)
-        want = fbank_frames.fbank_frames_plain(frames, cfg)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not bool(torch.isfinite(got).all()) or err > TOL[name]:
-            raise AssertionError(f"fbank_frames {name} M={m}: kernel vs plain max|d| {err}")
-
-        def kernel(frames=frames, cfg=cfg):
-            return fbank_frames.fbank_frames_cuda(frames, cfg)
-
-        def library(frames=frames):
-            spec = torch.fft.rfft(frames * win, n=f32.n_fft)
-            return torch.log((spec.real ** 2 + spec.imag ** 2) @ mel + f32.log_floor)
-
-        n_freqs = cfg.n_fft // 2 + 1
-        item = 2 if cfg.compute_dtype == "bfloat16" else 4
-        nbytes = m * 400 * 4 + m * cfg.n_mels * 4 + (2 * 400 * n_freqs + n_freqs * cfg.n_mels) * item
-        flops = 2 * m * 400 * n_freqs * 2 + 2 * m * n_freqs * cfg.n_mels
-        row = {"shape": [m, 400], "max_abs_err": err, "tol": TOL[name], "ms": cuda_ms(kernel),
-               "plain_ms": cuda_ms(lambda: fbank_frames.fbank_frames_plain(frames, cfg)),
-               "library_ms": cuda_ms(library), **bound(nbytes, flops, cfg.compute_dtype)}
-        rows[name, m] = with_device_time(row, kernel, "log_mel_")
-        emit({"phase": "kernel", "name": "fbank_frames", "config": name,
-              "library": "torch.fft.rfft + mel matmul (f32)", **rows[name, m]})
-    fbank_frames.fbank_frames(frames, FrontendConfig())  # the wrapper, as a caller would
-    torch.cuda.synchronize()
-    entry = summary("fbank_frames", "fbank_frames.cu", "sdtk_tpu/ops/research/fbank_frames.py:24",
-                    rows["bf16-ln", 12544], None)
-    entry["launches"] = fbank_frames.fbank_frames.launches
-    return entry
+        k4_case(frames, name, name)
 
 
 def reset_launches() -> dict:
     """Every kernel wrapper, by kernel name, with its count set to 0."""
-    from sdtk_tpu_torch.ops import cosine, fbank_frames, fbank_wave, topk_fused
+    from sdtk_tpu_torch.tools.measure import kernel_wrappers
 
-    wrappers = {"log_mel_wave": fbank_wave.log_mel_wave, "cosine": cosine.cosine,
-                "identify_topk": topk_fused.identify_topk_fused,
-                "fbank_frames": fbank_frames.fbank_frames}
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     return wrappers
@@ -672,6 +683,26 @@ def reset_launches() -> dict:
 
 def read_launches(wrappers: dict) -> dict:
     return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def write_profiles(vectors, backend, threads: int = 16) -> None:
+    """One store profile ``distractor-<j>`` per row of ``vectors``, each
+    with that row as its one embedding under ``backend``, written by
+    ``threads`` threads (the files are written one at a time through
+    ``store.profiles``, so the store's bytes do not depend on the threads;
+    the time is the file system's more than the host's)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sdtk_tpu_torch.store import profiles as P
+
+    def write(j: int) -> None:
+        profile = P.create_speaker_profile(f"distractor-{j:05d}", f"Distractor {j}")
+        P.add_embedding(profile, backend.name, P.create_embedding_record(
+            "synthetic", "0" * 32, [], backend.model_version, vector=vectors[j]))
+        P.save_speaker(profile)
+
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(write, range(len(vectors))))
 
 
 def phase_identify(work: Path, device: str, phase: str = "identify",
@@ -714,11 +745,7 @@ def phase_identify(work: Path, device: str, phase: str = "identify",
     n_distract = n_rows - len(voices) - sum(map(len, extra.values()))
     distractors = rng.standard_normal((n_distract, dim)).astype(np.float32)
     distractors /= np.linalg.norm(distractors, axis=1, keepdims=True)
-    for j, vec in enumerate(distractors):
-        profile = P.create_speaker_profile(f"distractor-{j:05d}", f"Distractor {j}")
-        P.add_embedding(profile, backend.name, P.create_embedding_record(
-            "synthetic", "0" * 32, [], backend.model_version, vector=vec))
-        P.save_speaker(profile)
+    write_profiles(distractors, backend)
     store_s = time.perf_counter() - t0
 
     wrappers = reset_launches()
@@ -958,7 +985,8 @@ def phase_embed_cluster(engine) -> dict:
     use_subspace=True)`` on a (1024, 48 000) batch of 3 s windows, 20 steps
     each chained on the one before (the next input depends on the
     last output, so no step can be skipped or reordered), by CUDA events;
-    embed alone the same way.  Returns the launch counts of the path."""
+    embed alone the same way, with its peak memory.  Returns the launch
+    counts of the path."""
     import numpy as np
     import torch
 
@@ -991,7 +1019,9 @@ def phase_embed_cluster(engine) -> dict:
         return start.elapsed_time(end) / 1e3
 
     wrappers = reset_launches()
+    torch.cuda.reset_peak_memory_stats(engine.device)
     embed_s = chained(embed)
+    embed_peak = torch.cuda.max_memory_allocated(engine.device)
     full_s = chained(embed_cluster)
     launches = read_launches(wrappers)
     with torch.inference_mode():
@@ -1013,6 +1043,7 @@ def phase_embed_cluster(engine) -> dict:
           "embed_audio_s_per_s": audio_s / embed_s,
           "embed_cluster_audio_s_per_s": audio_s / full_s,
           "cluster_share": (full_s - embed_s) / full_s, "device_ms_by_stage": top,
+          "embed_peak_memory_bytes": embed_peak,
           "cluster_sizes": sizes.tolist(),
           "labels_device": str(labels.device), "launches": launches})
     if labels.device.type != engine.device.type or labels.shape != (b,) or sizes.sum() != b:
@@ -1100,7 +1131,9 @@ def phase_assign(work: Path, device: str) -> dict:
     store = work / "assign-store"
     shutil.rmtree(store, ignore_errors=True)
     t0 = time.perf_counter()
-    shutil.copytree(work / "identify-store", store)
+    # the identify store, written once, is this phase's from here on (no
+    # later phase reads it under its old name): renamed, not copied
+    os.replace(work / "identify-store", store)
     os.environ["SPEAKERS_EMBEDDINGS_DIR"] = str(store)
     for v in range(3):
         # utterance 99: held out from every meeting (their turns are 0-19, 1000+)
@@ -1175,7 +1208,7 @@ def phase_assign(work: Path, device: str) -> dict:
             ("embed", "score_fused", "score_dense"), np.diff(t).tolist()))}
         checks[label] = scoring_case(q, p_dev, k)
     emit({"phase": "assign", "profiles": n, "dim": int(pm.matrix.shape[1]), "k": k,
-          "store_copy_and_enroll_seconds": store_s, "audio_seconds": len(wav) / 16000,
+          "store_enroll_seconds": store_s, "audio_seconds": len(wav) / 16000,
           "labels": {fmt: sorted(tr) for fmt, tr in truth.items()},
           "assign_seconds": {f"{r}/{f}": s for (r, f), s in wall.items()},
           "split_seconds_per_label": split,
@@ -1325,13 +1358,6 @@ TRAIN_GRAD_NOISE_FACTOR = 2.0
 ZERO_GRAD_PARAM = "asp.att2.bias"
 
 
-def _cos(a, b) -> float:
-    import torch
-
-    a, b = a.detach().double().flatten().cpu(), b.detach().double().flatten().cpu()
-    return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
-
-
 def phase_train_step(device):
     """One training step of the full-width ECAPA on the card against the
     same step on the CPU (K1's plain version, CPU convolutions) from one
@@ -1352,6 +1378,7 @@ def phase_train_step(device):
     from sdtk_tpu_torch.models.ecapa import EcapaConfig, EcapaTdnn
     from sdtk_tpu_torch.ops.fbank import FrontendConfig
     from sdtk_tpu_torch.parallel.train import TrainConfig, create_train_state
+    from sdtk_tpu_torch.tools.measure import cos
     from sdtk_tpu_torch.training import featurize_step, warm_start
 
     fams = tuple(int(f) for f in TRAIN_RECIPE["families"].split(","))
@@ -1385,7 +1412,7 @@ def phase_train_step(device):
                      "params": dict(zip(names, [p.detach().cpu() for p in params])),
                      "grads": dict(zip(names, [p.grad.detach().cpu() for p in params]))})
     gpu, cpu, ref = runs
-    param_cos = {n: _cos(gpu["params"][n], cpu["params"][n]) for n in gpu["params"]}
+    param_cos = {n: cos(gpu["params"][n], cpu["params"][n]) for n in gpu["params"]}
     worst = min((n for n in param_cos if n != ZERO_GRAD_PARAM), key=param_cos.get)
     # each tensor: the card's distance from the CPU's bf16 gradient over bf16's
     # own (the CPU's bf16 gradient's distance from its f32 one)
@@ -1398,8 +1425,8 @@ def phase_train_step(device):
     worst_grad = max(ratio, key=ratio.get)
     rounding_bound = [n for n in names
                       if noise[n] >= float(ref["grads"][n].double().norm()) and noise[n] > 0]
-    grad_cos_all = _cos(torch.cat([g.flatten() for g in gpu["grads"].values()]),
-                        torch.cat([g.flatten() for g in cpu["grads"].values()]))
+    grad_cos_all = cos(torch.cat([g.flatten() for g in gpu["grads"].values()]),
+                       torch.cat([g.flatten() for g in cpu["grads"].values()]))
     zero_grad_diff = float((gpu["params"][ZERO_GRAD_PARAM]
                             - cpu["params"][ZERO_GRAD_PARAM]).abs().max())
     loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
@@ -1410,7 +1437,7 @@ def phase_train_step(device):
            "param_cos_bar": TRAIN_PARAM_COS, "grad_cos_all": grad_cos_all,
            "grad_cos_bar": TRAIN_GRAD_COS, "worst_grad": worst_grad,
            "worst_grad_over_bf16_rounding": ratio[worst_grad],
-           "worst_grad_cos": _cos(gpu["grads"][worst_grad], cpu["grads"][worst_grad]),
+           "worst_grad_cos": cos(gpu["grads"][worst_grad], cpu["grads"][worst_grad]),
            "grad_rounding_bar": TRAIN_GRAD_NOISE_FACTOR,
            "grads_mostly_rounding": rounding_bound,
            "zero_grads": [n for n in names if float(ref["grads"][n].abs().max()) == 0.0],
@@ -1667,19 +1694,12 @@ def phase_train_xvector(work: Path) -> dict:
     return launches
 
 
-def free_port() -> int:
-    """A free TCP port on this machine, for a process group's rendezvous."""
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 @contextlib.contextmanager
 def one_rank_group_env():
     """``SDTK_*`` variables that describe a process group of one rank on
     this machine, as a user's launcher sets them; removed afterwards."""
+    from sdtk_tpu_torch.tools.measure import free_port
+
     keys = ("SDTK_COORDINATOR", "SDTK_NUM_PROCESSES", "SDTK_PROCESS_ID")
     os.environ.update({"SDTK_COORDINATOR": f"127.0.0.1:{free_port()}",
                        "SDTK_NUM_PROCESSES": "1", "SDTK_PROCESS_ID": "0"})
@@ -1842,6 +1862,7 @@ def phase_train_ddp(work: Path) -> dict:
 
     from sdtk_tpu_torch import training
     from sdtk_tpu_torch.parallel import multihost
+    from sdtk_tpu_torch.tools.measure import free_port
 
     kw = {**TRAIN_RECIPE, "model_name": "ecapa", "resume_path": FAM5TEL, "device": "cuda",
           "steps": 2, "seed": 3, "log_every": 1}
@@ -2184,6 +2205,7 @@ def phase_train_vad_step(device) -> dict:
     from sdtk_tpu_torch.evals import train_vad as tv
     from sdtk_tpu_torch.models.vad import VadNet
     from sdtk_tpu_torch.ops.fbank import FrontendConfig
+    from sdtk_tpu_torch.tools.measure import cos
 
     fcfg = FrontendConfig()
     t0 = time.perf_counter()
@@ -2207,8 +2229,8 @@ def phase_train_vad_step(device) -> dict:
                       "params": {n: p.detach().cpu() for n, p in net.named_parameters()}}
     first_launches = read_launches(wrappers)
     gpu, cpu = runs["cuda"], runs["cpu"]
-    grad_cos = {n: _cos(gpu["grads"][n], cpu["grads"][n]) for n in gpu["grads"]}
-    param_cos = {n: _cos(gpu["params"][n], cpu["params"][n]) for n in gpu["params"]}
+    grad_cos = {n: cos(gpu["grads"][n], cpu["grads"][n]) for n in gpu["grads"]}
+    param_cos = {n: cos(gpu["params"][n], cpu["params"][n]) for n in gpu["params"]}
     loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
     worst_g, worst_p = min(grad_cos, key=grad_cos.get), min(param_cos, key=param_cos.get)
 
@@ -2661,6 +2683,7 @@ def phase_train_conformer(work: Path, device) -> dict:
     from sdtk_tpu_torch.data.synth_families import family_utterance
     from sdtk_tpu_torch.ops.fbank import FrontendConfig
     from sdtk_tpu_torch.parallel.train import TrainConfig, create_train_state
+    from sdtk_tpu_torch.tools.measure import cos
     from sdtk_tpu_torch.training import build_model, featurize_step
 
     fams = tuple(int(f) for f in TRAIN_RECIPE["families"].split(","))
@@ -2683,8 +2706,8 @@ def phase_train_conformer(work: Path, device) -> dict:
     gpu, cpu = runs
     cpu_loss = cpu["loss"]
     loss_rel = abs(gpu["loss"] - cpu_loss) / abs(cpu_loss)
-    grad_cos = _cos(torch.cat([g.flatten() for g in gpu["grads"]]),
-                    torch.cat([g.flatten() for g in cpu["grads"]]))
+    grad_cos = cos(torch.cat([g.flatten() for g in gpu["grads"]]),
+                   torch.cat([g.flatten() for g in cpu["grads"]]))
     state = gpu["state"]
     del runs, cpu
     torch.cuda.synchronize()
@@ -3362,6 +3385,138 @@ def phase_mfu() -> dict:
     return {name: last["launches"].get(name, 0) for name in reset_launches()}
 
 
+SCALING_ARGS = {"per_device_batch": 1024, "seconds": 3.0, "iters": 3, "channels": 512}
+TOPK_SCALE_N = (100_000, 1_000_000)  # the JAX script's catalog sizes, W 64, D 192, k 64
+FRONTEND_ARGS = ["--batch", "1024", "--seconds", "3", "--iters", "20"]
+DECODE_ARGS = ["--files", "16", "--seconds", "30", "--thread-sweep"]
+
+
+def run_main(main_fn, argv: list[str]) -> tuple[int, dict]:
+    """``main_fn(argv)`` in this process: its exit code and the JSON object
+    of its last line of output."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def phase_scaling() -> dict:
+    """``evals.benchmark_scaling`` on one rank in an NCCL group (a spawned
+    process on this card) at full width: ECAPA c512 (seeded), 1024 rows of
+    3 s a step, 3 steps chained, after one warm-up step.  The rank sets
+    every launch count to 0 after its warm-up and reads them after its
+    timed steps: K1 once a step.  Returns the rank's launch counts."""
+    from sdtk_tpu_torch.evals import benchmark_scaling as bs
+
+    t0 = time.perf_counter()
+    summary = bs.measure([1], device="cuda", emit=lambda line: None, **SCALING_ARGS)
+    row, rank = summary["summary"][0], summary["ranks"]["1"][0]
+    emit({"phase": "scaling", **SCALING_ARGS, **row, "rank": rank,
+          "wall_seconds": time.perf_counter() - t0})
+    if not row["throughput_audio_s_per_s"] > 0:
+        raise AssertionError(f"scaling: throughput {row}")
+    if rank["launches"]["log_mel_wave"] != SCALING_ARGS["iters"]:
+        raise AssertionError(f"scaling: K1 launched {rank['launches']} in "
+                             f"{SCALING_ARGS['iters']} steps")
+    return rank["launches"]
+
+
+def phase_topk_scale(device) -> dict:
+    """``evals.benchmark_topk`` at its defaults through its ``main``: K2 on
+    bf16 profiles at N = 100 000 and 1 000 000 (W 64, D 192, k 64) against
+    the library decomposition, its hard gate (survivor sets equal, scores
+    within 5e-2) passed; then K2 held against its plain version on the
+    same inputs at both N (survivors equal, scores within SCORE_TOL).
+    Returns the launch counts of the ``main`` call."""
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch.evals import benchmark_topk as bt
+    from sdtk_tpu_torch.ops import topk, topk_fused
+
+    t0 = time.perf_counter()
+    wrappers = reset_launches()
+    rc, line = run_main(bt.main, ["--device", "cuda"])
+    launches = read_launches(wrappers)
+    rng = np.random.default_rng(0)  # the script's inputs: queries, then each N's rows
+    q = torch.from_numpy(rng.standard_normal((64, D)).astype(np.float32)).to(device)
+    held = {}
+    for n in TOPK_SCALE_N:
+        p, _ = bt.profiles(rng, n, D, device)
+        s, i = topk_fused.identify_topk_cuda(q, p, 64)
+        ws, wi = topk.identify_topk_plain(q, p, 64)
+        torch.cuda.synchronize()
+        held[str(n)] = {"survivors_equal": set(i.tolist()) == set(wi.tolist()),
+                        "max_abs_err": float((s - ws).abs().max()), "tol": SCORE_TOL}
+        del p
+    emit({"phase": "topk-scale", **line, "rc": rc, "kernel_vs_plain": held,
+          "launches": launches, "wall_seconds": time.perf_counter() - t0})
+    if rc != 0 or not line["parity_ok"] or set(line["sizes"]) != {str(n) for n in TOPK_SCALE_N}:
+        raise AssertionError(f"topk-scale: the gate failed (rc {rc}): {line['sizes']}")
+    bad = {n: h for n, h in held.items() if not (h["survivors_equal"]
+                                                 and h["max_abs_err"] <= SCORE_TOL)}
+    if bad:
+        raise AssertionError(f"topk-scale: K2 vs plain {bad}")
+    if launches["identify_topk"] <= 0:
+        raise AssertionError(f"topk-scale: K2 was not launched: {launches}")
+    return launches
+
+
+def phase_frontend(device) -> tuple[dict, dict]:
+    """``evals.benchmark_frontend`` at (1024, 48 000) through its ``main``:
+    the plain log-mel, K4 on the (305 152, 400) frames ``unfold`` writes
+    out, and K1, 20 chained calls each, both spot checks within 0.05; K4
+    launched at least once.  Then K4 against its plain version on that
+    path's frames (M = 305 152) at ``TOL["bf16-ln"]``, with its times and
+    bound.  Returns the launch counts of the ``main`` call and K4's row."""
+    import numpy as np
+    import torch
+
+    from sdtk_tpu_torch.evals import benchmark_frontend as bf
+    from sdtk_tpu_torch.ops import fbank
+    from sdtk_tpu_torch.ops.fbank import FrontendConfig
+
+    t0 = time.perf_counter()
+    wrappers = reset_launches()
+    rc, line = run_main(bf.main, [*FRONTEND_ARGS, "--device", "cuda"])
+    launches = read_launches(wrappers)
+    emit({"phase": "frontend", **line, "rc": rc, "launches": launches,
+          "wall_seconds": time.perf_counter() - t0})
+    if rc != 0 or launches["fbank_frames"] < 1 or launches["log_mel_wave"] < 1:
+        raise AssertionError(f"frontend: rc {rc}, launches {launches}, {line}")
+
+    cfg = FrontendConfig()
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1024, 48000)).astype(
+        np.float32)).to(device)  # the script's batch
+    frames = fbank.preemphasize(x, cfg.preemphasis).unfold(
+        1, cfg.win_length, cfg.hop_length).reshape(-1, cfg.win_length)
+    del x
+    if frames.shape[0] != 1024 * 298:
+        raise AssertionError(f"frontend: {frames.shape[0]} frames, expected 305 152")
+    row = k4_case(frames, "bf16-ln", "frontend path", reps=10)
+    return launches, row
+
+
+def phase_decode_sweep() -> dict:
+    """``evals.benchmark_decode`` through its ``main``: 16 WAVs of 30 s at
+    44.1 kHz decoded and resampled to 16 kHz by the C++ loader with one
+    thread a core and at 1, 2, 4 and every core, and by the NumPy path;
+    the per-core rate and the core scaling that the scaling roofline
+    takes.  No kernel runs.  Returns the launch counts (all 0)."""
+    from sdtk_tpu_torch.evals import benchmark_decode as bd
+
+    t0 = time.perf_counter()
+    wrappers = reset_launches()
+    rc, line = run_main(bd.main, [*DECODE_ARGS, "--device", "cuda"])
+    launches = read_launches(wrappers)
+    emit({"phase": "decode-sweep", **line, "rc": rc, "cores": os.cpu_count(),
+          "launches": launches, "wall_seconds": time.perf_counter() - t0})
+    if rc != 0 or not line.get("per_core_audio_s_per_s", 0) > 0 or not (
+            line.get("core_scaling_efficiency", 0) > 0):
+        raise AssertionError(f"decode-sweep: rc {rc}, {line}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "sdtk_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -3394,8 +3549,8 @@ def main() -> int:
                     for k, v in logs.items()},
           "tensor_core_instructions": mma_counts()})
 
-    kernel_rows = [phase_kernel(device), phase_kernel_cosine(device),
-                   phase_kernel_topk(device), phase_kernel_frames(device)]
+    kernel_rows = [phase_kernel(device), phase_kernel_cosine(device), phase_kernel_topk(device)]
+    phase_kernel_frames(device)  # K4's row in the kernels line is its path's (phase frontend)
 
     import numpy as np
 
@@ -3492,6 +3647,12 @@ def main() -> int:
     path_launches["evals"] = phase_evals(out_dir, "cuda")
     path_launches["speechbrain"] = phase_speechbrain(out_dir, wav, diarizer.backend.engine)
     path_launches["mfu"] = phase_mfu()
+    path_launches["scaling"] = phase_scaling()
+    path_launches["topk-scale"] = phase_topk_scale(device)
+    path_launches["frontend"], k4_path_row = phase_frontend(device)
+    kernel_rows.append(summary("fbank_frames", "fbank_frames.cu",
+                               "sdtk_tpu/ops/research/fbank_frames.py:24", k4_path_row, "frontend"))
+    path_launches["decode-sweep"] = phase_decode_sweep()
 
     for row in kernel_rows:
         if row["path"] is not None:

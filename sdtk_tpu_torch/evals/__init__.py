@@ -10,5 +10,11 @@ its DER), ``.mapper`` (the name mapper's accuracy) and ``.warmup``
 ``evals/benchmark_eer.py``, ``calibrate_threshold.py``,
 ``benchmark_der.py``, ``benchmark_identify.py``,
 ``benchmark_streaming.py``, ``benchmark_mapper.py`` and ``warmup.py``,
-with the same flags plus ``--device`` and the same JSON line.
+with the same flags plus ``--device`` and the same JSON line.  The speed
+harnesses ``.benchmark_scaling`` (the serving embed over 1..N cards, one
+rank a card), ``.benchmark_topk`` (the fused identify top-k against the
+library at catalog scale), ``.benchmark_frontend`` (the plain log-mel
+against both log-mel kernels), ``.benchmark_decode`` (the host's WAV
+decode) and ``run_matrix.sh`` (the DER matrix) follow the JAX scripts of
+those names the same way; ``.mfu_probe`` is the probe's.
 """

@@ -60,22 +60,17 @@ from __future__ import annotations
 import argparse
 import json
 import shutil
-import socket
 import subprocess
 import time
 from pathlib import Path
+
+from .measure import cos, free_port, kernel_wrappers
 
 RECIPE = {"families": "0,1,2,3,4", "n_speakers": 64, "batch": 32, "seconds": 3.0,
           "crop_seconds": 1.5, "aug_prob": 0.5, "noise_prob": 0.5, "model_name": "ecapa"}
 TP_TIMED_STEPS = 3
 TP_MESHES = ("data=2,model=2", "data=1,model=4")
 TP_EVAL_WINDOWS = 8
-
-
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
 
 
 def _rank(rank: int, world: int, port: int, job: dict) -> None:
@@ -168,15 +163,6 @@ def _sp_rank(rank: int, world: int, port: int, job: dict) -> None:
 
 # -- the model axis ------------------------------------------------------------
 
-def _kernel_wrappers() -> dict:
-    """Every kernel wrapper, by kernel name (each counts its launches)."""
-    from ..ops import cosine, fbank_frames, fbank_wave, topk_fused
-
-    return {"log_mel_wave": fbank_wave.log_mel_wave, "cosine": cosine.cosine,
-            "identify_topk": topk_fused.identify_topk_fused,
-            "fbank_frames": fbank_frames.fbank_frames}
-
-
 def _tp_state(device, dtype: str = "bfloat16"):
     """ECAPA c512 from the bundled fam5tel file with a seeded AAM head over
     the recipe's 320 classes, whole, on ``device``."""
@@ -225,7 +211,7 @@ def _tp_step(state, cfg, inputs, device, fcfg=None) -> dict:
     from ..ops.fbank import FrontendConfig
     from ..training import featurize_step
 
-    wrappers = _kernel_wrappers()
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(device)
@@ -362,7 +348,7 @@ def run_tp(inputs_path: Path, out: Path, mesh: str, world: int, backend: str,
     go.unlink(missing_ok=True)
     job = {"inputs": str(inputs_path), "out": str(out), "mesh": mesh, "backend": backend,
            "tag": tag, "go": str(go)}
-    ranks = mp.start_processes(_tp_rank, args=(world, f"127.0.0.1:{_free_port()}", job),
+    ranks = mp.start_processes(_tp_rank, args=(world, f"127.0.0.1:{free_port()}", job),
                                nprocs=world, join=False, start_method="spawn")
     try:
         result = meanwhile() if meanwhile else None
@@ -372,13 +358,6 @@ def run_tp(inputs_path: Path, out: Path, mesh: str, world: int, backend: str,
             pass
     return result, [torch.load(out / f"tp-{tag}-{r}.pt", weights_only=False)
                     for r in range(world)]
-
-
-def _cos(a, b) -> float:
-    import torch
-
-    return float(torch.nn.functional.cosine_similarity(a.double().flatten(),
-                                                       b.double().flatten(), dim=0))
 
 
 def tp_compare(ref: dict, ranks: list[dict]) -> dict:
@@ -395,18 +374,18 @@ def tp_compare(ref: dict, ranks: list[dict]) -> dict:
     import torch
 
     lead = ranks[0]
-    grad_cos = {n: _cos(lead["grads"][n], g) for n, g in ref["grads"].items()}
-    param_cos = {n: _cos(lead["params"][n], p) for n, p in ref["params"].items()}
+    grad_cos = {n: cos(lead["grads"][n], g) for n, g in ref["grads"].items()}
+    param_cos = {n: cos(lead["params"][n], p) for n, p in ref["params"].items()}
     rounding = {}
     for n, g in ref["grads"].items():
         dist = float((lead["grads"][n].double() - g.double()).norm())
         noise = float((g.double() - ref["grads_f32"][n].double()).norm())
         rounding[n] = dist / noise if noise > 0 else (0.0 if dist == 0 else float("inf"))
-    grad_cos_all = _cos(torch.cat([g.flatten() for g in lead["grads"].values()]),
-                        torch.cat([g.flatten() for g in ref["grads"].values()]))
+    grad_cos_all = cos(torch.cat([g.flatten() for g in lead["grads"].values()]),
+                       torch.cat([g.flatten() for g in ref["grads"].values()]))
     blocks = sorted((r["coords"]["data"], r["eval"]) for r in ranks if r["coords"]["model"] == 0)
     emb = torch.cat([e for _, e in blocks])
-    eval_cos = [_cos(a, b) for a, b in zip(emb, ref["eval"])]
+    eval_cos = [cos(a, b) for a, b in zip(emb, ref["eval"])]
     return {
         "loss": lead["loss"], "loss_one_card": ref["loss"],
         "loss_rel_diff": abs(lead["loss"] - ref["loss"]) / abs(ref["loss"]),
@@ -506,7 +485,7 @@ def main(argv: list[str] | None = None) -> int:
         return _conformer_sp(job, args.ranks, audio_s)
     runs = {}
     for world in sorted({1, args.ranks}):
-        mp.spawn(_rank, args=(world, _free_port(), job), nprocs=world, join=True)
+        mp.spawn(_rank, args=(world, free_port(), job), nprocs=world, join=True)
         run = json.loads((out / f"ranks-{world}.json").read_text())
         run["der_c075"] = diarization_error_rate(ref, [tuple(s) for s in run.pop("segments")],
                                                  collar=0.75)["der"]
@@ -540,7 +519,7 @@ def _conformer_sp(job: dict, ranks: int, audio_s: float) -> int:
 
     runs = {}
     for world in sorted({1, ranks}):
-        mp.spawn(_sp_rank, args=(world, _free_port(), job), nprocs=world, join=True)
+        mp.spawn(_sp_rank, args=(world, free_port(), job), nprocs=world, join=True)
         runs[world] = json.loads((Path(job["out"]) / f"sp-{world}.json").read_text())
     emb = {w: np.asarray(r.pop("embedding")) for w, r in runs.items()}
     diff = float(np.abs(emb[ranks] - emb[1]).max())

@@ -72,7 +72,10 @@ def test_port_imports_without_jax_or_sdtk_tpu():
         "          'sdtk_tpu_torch.pipeline.review', 'sdtk_tpu_torch.cli.review',\n"
         "          'sdtk_tpu_torch.pipeline.report', 'sdtk_tpu_torch.cli.report',\n"
         "          'sdtk_tpu_torch.cli.samples', 'sdtk_tpu_torch.cli.segments',\n"
-        "          'sdtk_tpu_torch.tools.convert_ecapa', 'sdtk_tpu_torch.evals.mfu_probe'):\n"
+        "          'sdtk_tpu_torch.tools.convert_ecapa', 'sdtk_tpu_torch.evals.mfu_probe',\n"
+        "          'sdtk_tpu_torch.evals.benchmark_scaling', 'sdtk_tpu_torch.evals.benchmark_topk',\n"
+        "          'sdtk_tpu_torch.evals.benchmark_frontend',\n"
+        "          'sdtk_tpu_torch.evals.benchmark_decode'):\n"
         "    assert m in mods, m\n"
         "assert 'yaml' not in sys.modules\n"
         "print(len(mods))\n"
