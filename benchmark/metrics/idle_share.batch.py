@@ -1,0 +1,3 @@
+"""The device's idle share of the traced window, read in the batch cells (``readers.idle_share``)."""
+
+from benchlib.readers import idle_share as read  # noqa: F401
