@@ -48,6 +48,7 @@ from ..ops.fbank_wave import log_mel_wave
 from ..utils.checkpoint import (conformer_state_dict, ecapa_state_dict, read_msgpack,
                                 xvector_state_dict)
 from ..utils.device import resolve_device
+from ..utils.profiling import count, stage
 from .base import LocalEmbeddingBackend
 
 WINDOW_SECONDS = 3.0
@@ -270,12 +271,19 @@ class EmbedEngine:
     def embed(self, windows, lengths) -> torch.Tensor:
         """(W, L) windows + (W,) valid sample counts (numpy or tensors) →
         (W, emb_dim) float32 unit rows on the engine's device."""
-        x = torch.as_tensor(windows, dtype=torch.float32).to(self.device, non_blocking=True)
-        lens = torch.as_tensor(lengths, dtype=torch.int64).to(self.device)
-        feats, mask = log_mel_wave(x, self.cfg, lengths=lens)
-        if self._input_norm is not None:
-            feats = (feats - self._input_norm[0]) / self._input_norm[1]
-        return l2_normalize(self.model(feats, mask))
+        with stage("embed.copy_in"):
+            x = torch.as_tensor(windows, dtype=torch.float32)
+            lens = torch.as_tensor(lengths, dtype=torch.int64)
+            count("embed.rows", x.shape[0])
+            if self.device.type == "cuda":
+                count("embed.h2d_bytes", sum(t.nbytes for t in (x, lens) if t.device.type == "cpu"))
+            x = x.to(self.device, non_blocking=True)
+            lens = lens.to(self.device)
+        with stage("embed.issue"):
+            feats, mask = log_mel_wave(x, self.cfg, lengths=lens)
+            if self._input_norm is not None:
+                feats = (feats - self._input_norm[0]) / self._input_norm[1]
+            return l2_normalize(self.model(feats, mask))
 
     def _window_all(self, wav: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Cut the whole recording into fixed windows: (n, L) and (n,)
@@ -302,6 +310,7 @@ class EmbedEngine:
             lens = np.zeros(W, np.int32)
             n = min(W, all_w.shape[0] - start)
             w[:n], lens[:n] = all_w[start : start + n], all_l[start : start + n]
+            count("embed.pad_rows", W - n)
             out.append(self.embed(w, lens)[:n].cpu().numpy())
         return np.concatenate(out, axis=0)
 

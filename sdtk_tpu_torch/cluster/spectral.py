@@ -19,6 +19,7 @@ import torch
 
 from ..utils import threefry
 from ..utils.device import resolve_device
+from ..utils.profiling import stage
 from .affinity import cosine_affinity, refine_affinity
 
 EIGVAL_TAU = 0.65
@@ -118,12 +119,13 @@ def topk_eigvecs_subspace(
     c = 2.0
     a = c * torch.eye(n, dtype=lap.dtype, device=lap.device) - lap
     m = min(n, k + 8)
-    if start is not None:
-        q = torch.tensor(np.asarray(start), dtype=lap.dtype, device=lap.device)
-        if tuple(q.shape) != (n, m):
-            raise ValueError(f"subspace start of shape {tuple(q.shape)}, expected {(n, m)}")
-    else:
-        q = torch.from_numpy(threefry.normal(0, (n, m))).to(lap.device, lap.dtype)
+    if start is None:
+        start = subspace_start(lap, k)
+    if not isinstance(start, torch.Tensor):
+        start = torch.tensor(np.asarray(start))
+    q = start.to(lap.device, lap.dtype)
+    if tuple(q.shape) != (n, m):
+        raise ValueError(f"subspace start of shape {tuple(q.shape)}, expected {(n, m)}")
     q, _ = torch.linalg.qr(q)
     for _ in range(n_iters):
         q, _ = torch.linalg.qr(a @ (a @ q))
@@ -131,6 +133,13 @@ def topk_eigvecs_subspace(
     lam = c - w
     order = torch.argsort(lam)
     return lam[order][:k], (q @ s)[:, order][:, :k]
+
+
+def subspace_start(lap: torch.Tensor, k: int) -> torch.Tensor:
+    """The JAX package's start for ``topk_eigvecs_subspace(lap, k)``,
+    drawn on the host and copied to ``lap``'s device."""
+    n = lap.shape[0]
+    return torch.from_numpy(threefry.normal(0, (n, min(n, k + 8)))).to(lap.device, lap.dtype)
 
 
 def _row_unit(x):
@@ -199,12 +208,16 @@ def spectral_eig(
     (eigvals ascending, eigvecs) — all of them for the dense solve, the
     smallest ``max_speakers + 1`` for the subspace path (default above
     4096 windows)."""
-    lap = normalized_laplacian(refine_affinity(cosine_affinity(emb), p_percentile))
+    with stage("cluster.affinity"):
+        lap = normalized_laplacian(refine_affinity(cosine_affinity(emb), p_percentile))
     if use_subspace is None:
         use_subspace = emb.shape[0] > 4096
-    if use_subspace:
-        return topk_eigvecs_subspace(lap, max_speakers + 1)
-    return torch.linalg.eigh(lap)
+    with stage("cluster.eig"):
+        if use_subspace:
+            with stage("cluster.start"):
+                start = subspace_start(lap, max_speakers + 1)
+            return topk_eigvecs_subspace(lap, max_speakers + 1, start=start)
+        return torch.linalg.eigh(lap)
 
 
 def spectral_cluster(
@@ -236,19 +249,26 @@ def spectral_cluster(
         )
 
     emb_np = np.asarray(emb, np.float32)
-    e = torch.from_numpy(emb_np).to(resolve_device(device))
+    with stage("cluster.copy_in"):
+        e = torch.from_numpy(emb_np).to(resolve_device(device))
     _, eigvecs = spectral_eig(e, max_speakers, p_percentile, use_subspace)
 
     if n_speakers is None:
         kmax = min(max_speakers, n)
-        labels0 = kmeans(_row_unit(eigvecs[:, :kmax]), kmax).cpu().numpy()
-        n_speakers, _ = merge_count(_row_unit(emb_np), labels0, merge_tau,
-                                    rel=merge_rel)
+        with stage("cluster.kmeans"):
+            labels0 = kmeans(_row_unit(eigvecs[:, :kmax]), kmax)
+        with stage("cluster.copy_out"):
+            labels0 = labels0.cpu().numpy()
+        with stage("cluster.merge_count"):
+            n_speakers, _ = merge_count(_row_unit(emb_np), labels0, merge_tau,
+                                        rel=merge_rel)
     n_speakers = max(1, min(n_speakers, max_speakers))
     if n_speakers == 1:
         return np.zeros(n, dtype=np.int32), 1
-    labels = kmeans(_row_unit(eigvecs[:, :n_speakers]), n_speakers)
-    return labels.cpu().numpy().astype(np.int32), n_speakers
+    with stage("cluster.kmeans"):
+        labels = kmeans(_row_unit(eigvecs[:, :n_speakers]), n_speakers)
+    with stage("cluster.copy_out"):
+        return labels.cpu().numpy().astype(np.int32), n_speakers
 
 
 def eigengap_count(eigvals: torch.Tensor, max_speakers: int = 8) -> torch.Tensor:
@@ -267,12 +287,17 @@ def cluster_stage(emb: torch.Tensor, max_speakers: int = 8,
     (dense ``torch.linalg.eigh``, or subspace iteration) → row-normalized
     → k-means.  Returns (N,) int64 labels on the same device.  The JAX
     package computes this stage in XLA, with no Pallas kernel."""
-    lap = normalized_laplacian(refine_affinity(cosine_affinity(emb)))
-    if use_subspace:
-        spec = topk_eigvecs_subspace(lap, max_speakers)[1]
-    else:
-        spec = torch.linalg.eigh(lap)[1][:, :max_speakers]
-    return kmeans(_row_unit(spec), max_speakers)
+    with stage("cluster.affinity"):
+        lap = normalized_laplacian(refine_affinity(cosine_affinity(emb)))
+    with stage("cluster.eig"):
+        if use_subspace:
+            with stage("cluster.start"):
+                start = subspace_start(lap, max_speakers)
+            spec = topk_eigvecs_subspace(lap, max_speakers, start=start)[1]
+        else:
+            spec = torch.linalg.eigh(lap)[1][:, :max_speakers]
+    with stage("cluster.kmeans"):
+        return kmeans(_row_unit(spec), max_speakers)
 
 
 def bench_cluster_fn(max_speakers: int = 8, use_subspace: bool = False):

@@ -20,7 +20,7 @@ import numpy as np
 from ..cluster.der import Segment, labels_to_segments
 from ..cluster.spectral import spectral_cluster
 from ..utils.device import resolve_device
-from ..utils.profiling import stage
+from ..utils.profiling import count, stage
 
 
 @dataclass(frozen=True)
@@ -212,19 +212,22 @@ class Diarizer:
         out = []
         for i in range(0, len(starts_sec), chunk):
             batch_starts = starts_sec[i : i + chunk]
-            windows = np.zeros((chunk, win), dtype=np.float32)
-            lengths = np.full(chunk, win, dtype=np.int32)
-            for j, s in enumerate(batch_starts):
-                a = int(s * sr)
-                seg = wav[a : a + win]
-                windows[j, : len(seg)] = seg
-                lengths[j] = max(len(seg), 400)
+            with stage("diarize.windows"):
+                windows = np.zeros((chunk, win), dtype=np.float32)
+                lengths = np.full(chunk, win, dtype=np.int32)
+                for j, s in enumerate(batch_starts):
+                    a = int(s * sr)
+                    seg = wav[a : a + win]
+                    windows[j, : len(seg)] = seg
+                    lengths[j] = max(len(seg), 400)
             if engine is None:
                 out.append(np.stack([self.backend.embed_waveform(w)
                                      for w in windows[: len(batch_starts)]]))
                 continue
+            count("embed.pad_rows", chunk - len(batch_starts))
             emb = engine.embed(windows, lengths)
-            out.append(emb[: len(batch_starts)].float().cpu().numpy())
+            with stage("diarize.copy_out"):  # waits for the chunk's device work
+                out.append(emb[: len(batch_starts)].float().cpu().numpy())
         return np.concatenate(out, axis=0)
 
     def diarize_waveform(self, wav: np.ndarray) -> dict[str, Any]:
