@@ -14,6 +14,9 @@ any failure raises and exits non-zero:
              and library times (CUDA events around the wrapper, median of
              30 launches after warm-up, L2 warm), the kernel's device time
              alone (``torch.profiler``) and the bound from this run's inputs;
+             the tower epilogue (port only) also against the eager chain it
+             replaces; its launches are checked on each path it serves
+             (and on none of the training paths) after the last phase;
 4. tower   — ECAPA embeddings on the card (bf16) against the port on the
              CPU (f32) for a few windows, by cosine;
 5. main    — ``Diarizer(device="cuda")`` on a synthesized 3-speaker
@@ -669,6 +672,102 @@ def phase_kernel_frames(device) -> None:
         if frames.shape[0] != m:
             raise AssertionError(f"expected {m} frames, got {frames.shape[0]}")
         k4_case(frames, name, name)
+
+
+def epilogue_case(device, b: int, c: int, t: int, res2: bool = False) -> dict:
+    """The tower epilogue on a (B, C, T) bf16 convolution output with
+    BatchNorm and a ragged mask (a quarter of the rows short, the last with
+    no valid frame) against its plain version, to the bit; with ``res2`` as
+    a Res2 split: its output into a channel slice of a buffer 8 splits
+    wide, and the next split's sum.  Times beside the bound (bytes: bf16
+    in and out, with ``res2`` the sum's input and output too, the mask's
+    B T bytes and the constants) and beside the eager chain it replaces
+    (relu, cast, ``F.batch_norm``, cast, the mask's cast and multiply; with
+    ``res2`` the add); emits the row."""
+    import torch
+    import torch.nn.functional as F
+
+    from sdtk_tpu_torch.ops import tower_epilogue as te
+
+    g = torch.Generator().manual_seed(c + t)
+    y = (3 * torch.randn(b, c, t, generator=g)).to(torch.bfloat16).to(device)
+    lengths = torch.where(torch.rand(b, generator=g) < 0.25,
+                          torch.randint(1, t + 1, (b,), generator=g), t)
+    lengths[-1] = 0
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).to(device)
+    stats = (2 * torch.randn(c, generator=g), 3 * torch.rand(c, generator=g) + 1e-3,
+             torch.randn(c, generator=g), torch.randn(c, generator=g))
+    mean, var, gamma, beta = (v.to(device) for v in stats)
+    scale, shift = te.bn_affine(mean, var, gamma, beta, 1e-5)
+    buf = torch.randn((b, 8 * c, t), generator=g).to(torch.bfloat16).to(device) if res2 else None
+    slices = dict(out=buf[:, c : 2 * c], add=buf[:, 2 * c : 3 * c]) if res2 else {}
+
+    def kernel():
+        return te.tower_epilogue_cuda(y, mask, scale, shift, **slices)
+
+    def plain():
+        return te.tower_epilogue_plain(y, mask, scale, shift, **slices)
+
+    def library():
+        e = F.batch_norm(torch.relu(y).float(), mean, var, gamma, beta, False, 0.0, 1e-5)
+        e = e.to(torch.bfloat16) * mask[:, None, :].float().to(torch.bfloat16)
+        return (e, slices["add"] + e) if res2 else e
+
+    got = [o.clone() for o in ((kernel(),) if not res2 else kernel())]
+    want = [o.clone() for o in ((plain(),) if not res2 else plain())]
+    eager = (library(),) if not res2 else library()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, w) for a, w in zip(got, want)):
+        raise AssertionError(f"tower_epilogue {(b, c, t)} res2={res2}: kernel != plain")
+    if got[0].masked_select(~mask[:, None, :]).any():
+        raise AssertionError(f"tower_epilogue {(b, c, t)}: a padded frame is not 0")
+
+    def beyond_ulp(a, w):  # share of elements more than 1 bf16 ulp apart
+        a, w = a.float(), w.float()
+        top = torch.maximum(a.abs(), w.abs()).clamp_min(1e-30)
+        return float(((a - w).abs() > torch.exp2(torch.floor(torch.log2(top)) - 7)).float().mean())
+
+    ulp_off = max(beyond_ulp(a, w) for a, w in zip(got, eager))
+    n = b * c * t
+    nbytes = 2 * n * (4 if res2 else 2) + b * t + 8 * c
+    row = {"shape": [b, c, t], "res2": res2, "max_abs_err": 0.0,
+           "eager_share_beyond_1ulp": ulp_off, "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+           "library_ms": cuda_ms(library), **bound(nbytes, 0.0, "bfloat16")}
+    row = with_device_time(row, kernel, "tower_epilogue")
+    emit({"phase": "kernel", "name": "tower_epilogue",
+          "library": "the eager chain: relu, cast, F.batch_norm (f32), cast, mask", **row})
+    return row
+
+
+def phase_kernel_epilogue(device) -> dict:
+    """The tower epilogue at the c512 batch cell's TDNN output (1024, 512,
+    298), a diarizer chunk's (128, 512, 98), a c512 Res2 split (1024, 64,
+    298) and the c1024 TDNN output (1024, 1024, 301).  Its launches are
+    each path's own (``check_epilogue_paths``)."""
+    rows = {shape: epilogue_case(device, *shape) for shape in
+            ((1024, 512, 298), (128, 512, 98), (1024, 64, 298, True), (1024, 1024, 301))}
+    return summary("tower_epilogue", "tower_epilogue.cu", "none (port only, no JAX counterpart)",
+                   rows[(1024, 512, 298)], "diarize")
+
+
+# Paths that serve an ECAPA or x-vector tower in eval mode on the card, so
+# take the fused epilogue; and the training paths, which keep the eager one.
+EPILOGUE_PATHS = ("diarize", "identify", "identify-xvector", "embed-cluster", "longform",
+                  "heldout-der", "profile", "speechbrain", "mfu", "scaling")
+EAGER_PATHS = ("train", "train-xvector", "train-ddp", "train-vad-step", "train-vad",
+               "train-conformer", "train-tp")
+
+
+def check_epilogue_paths(path_launches: dict) -> None:
+    """The tower epilogue launched on every serving path of
+    ``EPILOGUE_PATHS`` and on no training path."""
+    counts = {p: path_launches[p]["tower_epilogue"] for p in EPILOGUE_PATHS + EAGER_PATHS}
+    emit({"phase": "kernel", "name": "tower_epilogue", "launches_by_path": counts})
+    missing = [p for p in EPILOGUE_PATHS if counts[p] <= 0]
+    trained = [p for p in EAGER_PATHS if counts[p] != 0]
+    if missing or trained:
+        raise AssertionError(f"tower_epilogue: not launched on {missing}, launched on the "
+                             f"training paths {trained}: {counts}")
 
 
 def reset_launches() -> dict:
@@ -1725,7 +1824,8 @@ def phase_longform(work: Path, ref_61) -> dict:
     version.  Fails unless both meetings give 3 speakers, the hour's
     confusion and DER are at or below LONGFORM_CONFUSION_BAR and
     LONGFORM_DER_BAR, the 61.3 s meeting's DER and the ungated hour's at or
-    below DER_BAR, K1 launched once and agrees with its plain version.  Returns the hour
+    below DER_BAR, K1 launched once and agrees with its plain version, the tower
+    epilogue launched and no other kernel.  Returns the hour
     call's launch counts."""
     import numpy as np
     import torch
@@ -1827,8 +1927,10 @@ def phase_longform(work: Path, ref_61) -> dict:
                            "der_bar": DER_BAR, "windows": len(short["window_labels"]),
                            "stage_seconds": short["timings"]}}
     emit(row)
-    if launches["log_mel_wave"] != 1 or any(v for k, v in launches.items() if k != "log_mel_wave"):
-        raise AssertionError(f"longform: launches {launches}, expected log_mel_wave 1 and no other")
+    if launches["log_mel_wave"] != 1 or launches["tower_epilogue"] <= 0 or any(
+            v for k, v in launches.items() if k not in ("log_mel_wave", "tower_epilogue")):
+        raise AssertionError(f"longform: launches {launches}, expected log_mel_wave 1, the "
+                             f"tower epilogue and no other")
     if first["mesh_devices"] != 1:
         raise AssertionError(f"longform: {first['mesh_devices']} ranks, expected a group of 1")
     if out1["n_speakers"] != 3 or out3["n_speakers"] != 3:
@@ -3382,7 +3484,7 @@ def phase_mfu() -> dict:
         raise AssertionError(f"mfu: rows out of (0, 1]: {bad or last['rows']}")
     if last["launches"]["log_mel_wave"] <= 0:
         raise AssertionError("mfu: the probe did not launch log_mel_wave")
-    return {name: last["launches"].get(name, 0) for name in reset_launches()}
+    return last["launches"]
 
 
 SCALING_ARGS = {"per_device_batch": 1024, "seconds": 3.0, "iters": 3, "channels": 512}
@@ -3549,7 +3651,8 @@ def main() -> int:
                     for k, v in logs.items()},
           "tensor_core_instructions": mma_counts()})
 
-    kernel_rows = [phase_kernel(device), phase_kernel_cosine(device), phase_kernel_topk(device)]
+    kernel_rows = [phase_kernel(device), phase_kernel_cosine(device), phase_kernel_topk(device),
+                   phase_kernel_epilogue(device)]
     phase_kernel_frames(device)  # K4's row in the kernels line is its path's (phase frontend)
 
     import numpy as np
@@ -3658,6 +3761,7 @@ def main() -> int:
         if row["path"] is not None:
             row["launches"] = path_launches[row["path"]][row["name"]]
         row["launches_by_path"] = {p: counts[row["name"]] for p, counts in path_launches.items()}
+    check_epilogue_paths(path_launches)
     emit({"kernels": kernel_rows})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,7 @@ import torch
 
 from .. import config
 from ..models.conformer import Conformer, ConformerConfig
-from ..models.ecapa import EcapaConfig, EcapaTdnn, l2_normalize
+from ..models.ecapa import EcapaConfig, EcapaTdnn, l2_normalize, prepare_serving
 from ..models.xvector import XVector, XVectorConfig
 from ..ops.fbank import FrontendConfig
 from ..ops.fbank_wave import log_mel_wave
@@ -203,6 +203,7 @@ class EmbedEngine:
         self.model.to(device).eval()
         if device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
+            prepare_serving(self.model)  # bf16 weights, BatchNorm constants: built once here
         self.calibration = self._load_calibration()
         self.cohort = self._load_cohort()
 

@@ -115,6 +115,7 @@ def main(argv: list[str] | None = None) -> int:
     from ..models.ecapa import EcapaConfig, EcapaTdnn, l2_normalize
     from ..ops import fbank_wave
     from ..ops.fbank import FrontendConfig
+    from ..tools.measure import kernel_wrappers
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -129,7 +130,9 @@ def main(argv: list[str] | None = None) -> int:
         model.reset_parameters(torch.Generator().manual_seed(0))
         return cfg, model.to(device).eval()
 
-    fbank_wave.log_mel_wave.launches = 0
+    wrappers = kernel_wrappers()
+    for launched in wrappers.values():
+        launched.launches = 0
     results = []
     for batch in batches:
         wav = torch.from_numpy(rng.standard_normal((batch, n)).astype(np.float32)).to(device)
@@ -171,7 +174,7 @@ def main(argv: list[str] | None = None) -> int:
             print(json.dumps(row), flush=True)
     print(json.dumps({"benchmark": "mfu_probe", "rows": results, "device": card_name(device),
                       "peak_flops": PEAK_FLOPS,
-                      "launches": {"log_mel_wave": fbank_wave.log_mel_wave.launches}}))
+                      "launches": {name: fn.launches for name, fn in wrappers.items()}}))
     return 0
 
 

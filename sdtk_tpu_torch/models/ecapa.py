@@ -24,6 +24,19 @@ gathers the whole output before its (replicated) bias; a Dense split on
 its input rows takes its block of the input and sums the partial
 products over the model ranks; SE's fc1 and fc2, split on the bottleneck,
 are one pair with one sum.  Each returns what the whole layer returns.
+
+Serving route.  An eval forward on the card in bf16 with autograd off (no
+``tp``) takes each convolution's ReLU → BatchNorm → bf16 → mask in one
+launch of ``ops/tower_epilogue.py`` (a Res2 split's next-split add and its
+slice of the block's output too), and each Conv and Dense its weight and
+bias from a bf16 serving copy instead of casting them every call.  The
+copies and each BatchNorm's f32 (scale, shift) are built at first use or
+ahead by :func:`prepare_serving`, and rebuilt whenever a parameter or
+statistic is replaced or written in place (``load_state_dict``, ``.to()``,
+an optimizer step).  Training, tensor parallel, f32 towers and the CPU
+take the eager ops above.  Counters (while profiling): ``tower.epilogues``
+every post-convolution epilogue, ``tower.fused_epilogues`` those the
+kernel ran.
 """
 
 from __future__ import annotations
@@ -34,7 +47,63 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.tower_epilogue import bn_affine, tower_epilogue
 from ..parallel.sharding import copy_to, gather_from, reduce_from, scatter_to
+from ..utils.profiling import count
+
+
+SERVING_DEVICES = ("cuda",)  # where the serving route runs
+
+
+def serving(mod: "Conv | Dense", x: torch.Tensor, dt: torch.dtype) -> bool:
+    """Take the serving route: an eval Conv or Dense on the card, bf16, with
+    autograd off (the kernel has no backward) and no tensor-parallel
+    split."""
+    return (x.device.type in SERVING_DEVICES and not mod.training and dt == torch.bfloat16
+            and not torch.is_grad_enabled() and mod.tp is None)
+
+
+def _serving_copy(mod: nn.Module, sources: tuple[torch.Tensor, ...], make):
+    """``make()``'s tensors, cached on ``mod`` until a tensor of ``sources``
+    moves or is written (its storage or version counter changes)."""
+    key = [(t.data_ptr(), t._version) for t in sources]
+    cached = mod.__dict__.get("_serving")
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            cached = (key, make())
+        mod.__dict__["_serving"] = cached
+    return cached[1]
+
+
+def _cast_copy(mod: nn.Module, dt: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """A Conv's or Dense's serving copy of (weight, bias) in ``dt``."""
+    w, b = mod.weight, mod.bias
+    return _serving_copy(mod, (w, b), lambda: (w.detach().to(dt), b.detach().to(dt)))
+
+
+def _params(mod: nn.Module, x: torch.Tensor, dt: torch.dtype):
+    """A Conv's or Dense's (weight, bias) in ``dt``: the serving copy on the
+    serving route, else cast now."""
+    if serving(mod, x, dt):
+        return _cast_copy(mod, dt)
+    return mod.weight.to(dt), mod.bias.to(dt)
+
+
+def _epilogue(bn: "BatchNorm | None", y: torch.Tensor, m: torch.Tensor | None, dt: torch.dtype,
+              mask: torch.Tensor | None, owner: nn.Module) -> torch.Tensor:
+    """ReLU → ``bn`` (f32, None: none) → ``dt`` → times the (B, 1, T) float
+    mask ``m`` (None with ``mask`` None: unmasked) after a convolution; on
+    the serving route one kernel launch, reading the (B, T) bool ``mask``."""
+    fused = serving(owner, y, dt)
+    count("tower.epilogues")
+    if fused:
+        count("tower.fused_epilogues")
+        scale, shift = bn.serving_affine() if bn is not None else (None, None)
+        return tower_epilogue(y, mask, scale, shift)
+    x = torch.relu(y)
+    if bn is not None:
+        x = bn(x).to(dt)
+    return x if m is None else x * m.to(dt)
 
 
 @dataclass(frozen=True)
@@ -73,8 +142,9 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         if self.tp is None:
-            return F.conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                            padding=self.pad, dilation=self.dilation, groups=self.groups)
+            w, b = _params(self, x, dt)
+            return F.conv1d(x.to(dt), w, b, padding=self.pad, dilation=self.dilation,
+                            groups=self.groups)
         if self.tp.dim != 0 or self.groups != 1:
             raise NotImplementedError("a Conv splits its output channels only, ungrouped")
         mesh = self.tp.mesh
@@ -92,7 +162,7 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         if self.tp is None:
-            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+            return F.linear(x.to(dt), *_params(self, x, dt))
         mesh = self.tp.mesh
         if self.tp.dim == 1:
             y = F.linear(scatter_to(x.to(dt), -1, mesh), self.weight.to(dt))
@@ -132,6 +202,13 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.sync = False  # statistics over the ranks of sync_group
         self.sync_group = None
+
+    def serving_affine(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Eval normalization as f32 per-channel (scale, shift)
+        (``ops/tower_epilogue.py:bn_affine``), kept until a statistic or
+        parameter changes."""
+        src = (self.running_mean, self.running_var, self.weight, self.bias)
+        return _serving_copy(self, src, lambda: bn_affine(*(t.detach() for t in src), self.eps))
 
     def _global_moments(self, x: torch.Tensor, dims: list[int]
                         ) -> tuple[torch.Tensor, torch.Tensor] | None:
@@ -213,9 +290,8 @@ class TdnnBlock(nn.Module):
         self.conv = Conv(cin, cout, kernel, dilation)
         self.bn = BatchNorm(cout)
 
-    def forward(self, x, m, dt):
-        x = self.bn(torch.relu(self.conv(x, dt))).to(dt)
-        return x * m.to(dt)
+    def forward(self, x, m, dt, mask):
+        return _epilogue(self.bn, self.conv(x, dt), m, dt, mask, self.conv)
 
 
 class Res2Conv(nn.Module):
@@ -231,16 +307,37 @@ class Res2Conv(nn.Module):
             self.add_module(f"conv{i}", Conv(width, width, kernel, dilation))
             self.add_module(f"bn{i}", BatchNorm(width))
 
-    def forward(self, x, m, dt):
+    def forward(self, x, m, dt, mask):
+        if serving(self.conv1, x, dt):
+            return self._serve(x.contiguous(), mask, dt)
         xs = torch.chunk(x, self.scale, dim=1)
         outs = [xs[0]]
         prev = None
         for i in range(1, self.scale):
             inp = xs[i] if prev is None else xs[i] + prev
-            prev = getattr(self, f"conv{i}")(inp, dt)
-            prev = getattr(self, f"bn{i}")(torch.relu(prev)).to(dt) * m.to(dt)
+            prev = _epilogue(getattr(self, f"bn{i}"), getattr(self, f"conv{i}")(inp, dt), m, dt,
+                             mask, self.conv1)
             outs.append(prev)
         return torch.cat(outs, dim=1)
+
+    def _serve(self, x, mask, dt):
+        """The serving route: split i's epilogue writes its slice of the
+        output and, for i < scale − 1, split i + 1's input xs[i+1] + out_i
+        (rounded as PyTorch's bf16 add rounds); no add, no cat."""
+        xs = torch.chunk(x, self.scale, dim=1)
+        out = torch.empty_like(x)
+        w = xs[0].shape[1]
+        out[:, :w].copy_(xs[0])
+        inp = xs[1]
+        for i in range(1, self.scale):
+            scale, shift = getattr(self, f"bn{i}").serving_affine()
+            y = getattr(self, f"conv{i}")(inp, dt)
+            nxt = xs[i + 1] if i + 1 < self.scale else None
+            res = tower_epilogue(y, mask, scale, shift, out=out[:, i * w : (i + 1) * w], add=nxt)
+            inp = res[1] if nxt is not None else None
+        count("tower.epilogues", self.scale - 1)
+        count("tower.fused_epilogues", self.scale - 1)
+        return out
 
 
 class SEBlock(nn.Module):
@@ -276,11 +373,11 @@ class SERes2Block(nn.Module):
         self.tdnn_out = TdnnBlock(channels, channels, 1, 1)
         self.se = SEBlock(channels, se_bottleneck)
 
-    def forward(self, x, m, dt):
+    def forward(self, x, m, dt, mask):
         residual = x
-        x = self.tdnn_in(x, m, dt)
-        x = self.res2(x, m, dt)
-        x = self.tdnn_out(x, m, dt)
+        x = self.tdnn_in(x, m, dt, mask)
+        x = self.res2(x, m, dt, mask)
+        x = self.tdnn_out(x, m, dt, mask)
         x = self.se(x, m, dt)
         return x + residual
 
@@ -304,8 +401,8 @@ class AttentiveStatsPooling(nn.Module):
         ctx = torch.cat([x, mean[:, :, None].expand(-1, -1, t).to(x.dtype),
                          std[:, :, None].expand(-1, -1, t).to(x.dtype)], dim=1)
         a = self.att1(ctx, dt)
-        if self.tdnn_attention:
-            a = self.att_bn(torch.relu(a)).to(dt)
+        if self.tdnn_attention:  # unmasked, as the JAX module leaves it
+            a = _epilogue(self.att_bn, a, None, dt, None, self.att1)
         a = self.att2(torch.tanh(a), dt).float()
         a = a.masked_fill(~mask[:, None, :], -1e9)
         w = torch.softmax(a, dim=2)  # per-channel attention over time
@@ -346,19 +443,32 @@ class EcapaTdnn(nn.Module):
         m = mask[:, None, :].float()  # (B, 1, T)
         x = feats.to(dt).transpose(1, 2) * m.to(dt)
 
-        x = self.stem(x, m, dt)
+        x = self.stem(x, m, dt, mask)
         block_outs = []
         for i in range(len(cfg.dilations)):
-            x = getattr(self, f"block{i + 1}")(x, m, dt)
+            x = getattr(self, f"block{i + 1}")(x, m, dt, mask)
             block_outs.append(x)
 
-        x = torch.relu(self.mfa(torch.cat(block_outs, dim=1), dt))
-        if cfg.mfa_bn:
-            x = self.mfa_bn(x).to(dt)
-        x = x * m.to(x.dtype)
+        x = _epilogue(self.mfa_bn if cfg.mfa_bn else None,
+                      self.mfa(torch.cat(block_outs, dim=1), dt), m, dt, mask, self.mfa)
 
         pooled = self.asp_bn(self.asp(x, mask, dt))
         return self.embedding(pooled, torch.float32)
+
+
+def prepare_serving(model: nn.Module) -> None:
+    """Build the serving copies of ``model``'s Conv and Dense weights (in its
+    compute dtype) and BatchNorm constants now, so that the first serving
+    forward does not; each is rebuilt at use if it went stale.  Any tower
+    built of these modules (ECAPA, the x-vector, the Conformer) takes it."""
+    dt = model.cfg.compute_dtype
+    if dt != torch.bfloat16:
+        return
+    for mod in model.modules():
+        if isinstance(mod, (Conv, Dense)) and mod.tp is None:
+            _cast_copy(mod, dt)
+        elif isinstance(mod, BatchNorm):
+            mod.serving_affine()
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

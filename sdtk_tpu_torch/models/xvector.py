@@ -62,6 +62,6 @@ class XVector(nn.Module):
         m = mask[:, None, :].float()  # (B, 1, T)
         x = feats.to(dt).transpose(1, 2) * m.to(dt)
         for i in range(len(_LAYERS)):
-            x = getattr(self, f"tdnn{i + 1}")(x, m, dt)
+            x = getattr(self, f"tdnn{i + 1}")(x, m, dt, mask)
         mean, std = _masked_mean_std(x, m)
         return self.segment6(torch.cat([mean, std], dim=1), torch.float32)

@@ -50,11 +50,12 @@ def smi(query: str, index: int | None = None) -> str:
 def kernel_wrappers() -> dict:
     """Every kernel wrapper, by kernel name (each counts its launches in
     ``.launches``)."""
-    from ..ops import cosine, fbank_frames, fbank_wave, topk_fused
+    from ..ops import cosine, fbank_frames, fbank_wave, topk_fused, tower_epilogue
 
     return {"log_mel_wave": fbank_wave.log_mel_wave, "cosine": cosine.cosine,
             "identify_topk": topk_fused.identify_topk_fused,
-            "fbank_frames": fbank_frames.fbank_frames}
+            "fbank_frames": fbank_frames.fbank_frames,
+            "tower_epilogue": tower_epilogue.tower_epilogue}
 
 
 def free_port() -> int:

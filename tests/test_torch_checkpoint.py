@@ -75,7 +75,7 @@ def test_port_imports_without_jax_or_sdtk_tpu():
         "          'sdtk_tpu_torch.tools.convert_ecapa', 'sdtk_tpu_torch.evals.mfu_probe',\n"
         "          'sdtk_tpu_torch.evals.benchmark_scaling', 'sdtk_tpu_torch.evals.benchmark_topk',\n"
         "          'sdtk_tpu_torch.evals.benchmark_frontend',\n"
-        "          'sdtk_tpu_torch.evals.benchmark_decode'):\n"
+        "          'sdtk_tpu_torch.evals.benchmark_decode', 'sdtk_tpu_torch.tools.profile_issue'):\n"
         "    assert m in mods, m\n"
         "assert 'yaml' not in sys.modules\n"
         "print(len(mods))\n"

@@ -118,6 +118,7 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 
 def test_build_paths_track_the_source():
-    assert build.kernel_names() == ["cosine", "fbank_frames", "identify_topk", "log_mel_wave"]
+    assert build.kernel_names() == ["cosine", "fbank_frames", "identify_topk", "log_mel_wave",
+                                   "tower_epilogue"]
     p = build.library_path("log_mel_wave")
     assert p.parent == build.BUILD_DIR and p.name.startswith("liblog_mel_wave-")

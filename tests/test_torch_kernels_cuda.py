@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from sdtk_tpu_torch.ops import cosine, fbank, fbank_frames, fbank_wave, topk, topk_fused
+from sdtk_tpu_torch.ops import (cosine, fbank, fbank_frames, fbank_wave, topk, topk_fused,
+                               tower_epilogue)
 from sdtk_tpu_torch.tools.convert_ecapa import SB_FRONTEND
 
 pytestmark = pytest.mark.cuda
@@ -302,3 +303,138 @@ def test_longform_diarizer_on_card_matches_cpu(cuda):
     a, b = np.asarray(runs["cuda"]["window_labels"]), np.asarray(runs["cpu"]["window_labels"])
     assert runs["cuda"]["windows_kept"] == runs["cpu"]["windows_kept"]
     assert len(set(zip(a.tolist(), b.tolist()))) == len(set(a.tolist())) == 2
+
+
+def _ragged_mask(b, t, seed):
+    """(B, T) bool: ragged lengths, the first row whole, the last with no
+    valid frame."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    lengths[0], lengths[-1] = t, 0
+    return torch.arange(t)[None, :] < lengths[:, None]
+
+
+def _bn_constants(c, seed):
+    g = torch.Generator().manual_seed(seed)
+    return tower_epilogue.bn_affine(2 * torch.randn(c, generator=g),
+                                    3 * torch.rand(c, generator=g) + 1e-3,
+                                    torch.randn(c, generator=g), torch.randn(c, generator=g), 1e-5)
+
+
+# The tower epilogue against its plain version: the same f32 fma and the
+# same roundings, so equal to the bit.  (1024, 512, 298) is the c512 batch
+# cell's TDNN output, (1024, 1024, 301) c1024's, (128, 512, 98) a diarizer
+# chunk of 1 s windows; C T = 1500 x 301 is not a multiple of 8 (scalar
+# accesses).
+@pytest.mark.parametrize("shape", [(1024, 512, 298), (1024, 1024, 301), (128, 512, 98),
+                                   (3, 1500, 301)])
+@pytest.mark.parametrize("with_bn", [True, False])
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_tower_epilogue_kernel_matches_plain(cuda, shape, with_bn, with_mask):
+    b, c, t = shape
+    y = (3 * torch.randn(shape, generator=torch.Generator().manual_seed(c + t))).to(
+        torch.bfloat16).to(cuda)
+    mask = _ragged_mask(b, t, c).to(cuda) if with_mask else None
+    scale, shift = ((x.to(cuda) for x in _bn_constants(c, t)) if with_bn else (None, None))
+    before = tower_epilogue.tower_epilogue.launches
+    got = tower_epilogue.tower_epilogue(y, mask, scale, shift)
+    want = tower_epilogue.tower_epilogue_plain(y, mask, scale, shift)
+    torch.cuda.synchronize()
+    assert tower_epilogue.tower_epilogue.launches == before + 1
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    if mask is not None:
+        assert not got.masked_select(~mask[:, None, :]).any()
+
+
+# A Res2 split: the output into its channel slice of the block's buffer and
+# the next split's input, add + out; at the c512 and c1024 splits (64 and
+# 128 of 512 and 1024 channels) and a diarizer chunk's.
+@pytest.mark.parametrize("b,c,t,scale", [(1024, 512, 298, 8), (1024, 1024, 301, 8),
+                                         (128, 512, 98, 8)])
+def test_tower_epilogue_kernel_res2_split(cuda, b, c, t, scale):
+    w = c // scale
+    g = torch.Generator().manual_seed(t)
+    x = torch.randn(b, c, t, generator=g).to(torch.bfloat16).to(cuda)
+    y = torch.randn(b, w, t, generator=g).to(torch.bfloat16).to(cuda)
+    mask = _ragged_mask(b, t, w).to(cuda)
+    scale_, shift = (v.to(cuda) for v in _bn_constants(w, c))
+    bufs = [torch.full_like(x, 7.0) for _ in range(2)]
+    for buf, fn in zip(bufs, (tower_epilogue.tower_epilogue, tower_epilogue.tower_epilogue_plain)):
+        out, nxt = fn(y, mask, scale_, shift, out=buf[:, 2 * w : 3 * w], add=x[:, 3 * w : 4 * w])
+        assert out.data_ptr() == buf[:, 2 * w :].data_ptr() and nxt.is_contiguous()
+        buf.nxt = nxt
+    torch.cuda.synchronize()
+    assert torch.equal(bufs[0], bufs[1]) and torch.equal(bufs[0].nxt, bufs[1].nxt)
+    assert bool((bufs[0][:, : 2 * w] == 7).all()) and bool((bufs[0][:, 3 * w :] == 7).all())
+
+
+def test_tower_epilogue_kernel_raises_on_what_it_does_not_take(cuda):
+    y = torch.zeros(2, 8, 5, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="mask"):
+        tower_epilogue.tower_epilogue(y, torch.ones(2, 5, device=cuda))
+    with pytest.raises(ValueError, match="together"):
+        tower_epilogue.tower_epilogue(y, None, torch.ones(8, device=cuda))
+    with pytest.raises(ValueError, match="y must be"):
+        tower_epilogue.tower_epilogue(y.float())
+
+
+def _serving_towers():
+    from sdtk_tpu_torch.models.ecapa import EcapaConfig, EcapaTdnn
+    from sdtk_tpu_torch.models.xvector import XVector, XVectorConfig
+
+    return {"c512": lambda: EcapaTdnn(EcapaConfig()),
+            "c1024-speechbrain": lambda: EcapaTdnn(EcapaConfig(
+                channels=1024, mfa_channels=3072, attention_channels=128, mfa_bn=True,
+                asp_tdnn=True)),
+            "xvector": lambda: XVector(XVectorConfig())}
+
+
+# Eval towers at full width with random weights and BatchNorm statistics:
+# the serving route (the epilogue kernel, bf16 serving copies) against the
+# eager route (autograd on) on the card.  Each TDNN block and Res2 conv is
+# run again on the serving route from the input the eager route gave it,
+# so each block's difference is its own: cuDNN's BatchNorm and the
+# kernel's fma round apart by at most 1 bf16 ulp, on >= 99.9 % of
+# elements; padded frames exactly 0.  Whole embeddings at cosine 0.9999.
+@pytest.mark.parametrize("name", ["c512", "c1024-speechbrain", "xvector"])
+def test_serving_tower_matches_eager_on_card(cuda, name):
+    from sdtk_tpu_torch.models.ecapa import BatchNorm, Res2Conv, TdnnBlock
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(21)
+    model = _serving_towers()[name]()
+    model.reset_parameters(g)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                c = mod.weight.shape[0]
+                mod.running_mean.copy_(0.3 * torch.randn(c, generator=g))
+                mod.running_var.copy_(torch.rand(c, generator=g) + 0.2)
+                mod.weight.copy_(1 + 0.2 * torch.randn(c, generator=g))
+                mod.bias.copy_(0.2 * torch.randn(c, generator=g))
+    model.to(cuda).eval()
+    b, t = 64, 301
+    feats = torch.randn(b, t, 80, generator=g).to(cuda)
+    mask = _ragged_mask(b, t, 5).to(cuda)
+    seen = []
+    hooks = [mod.register_forward_hook(lambda mod, args, out: seen.append((mod, args, out)))
+             for mod in model.modules() if isinstance(mod, (TdnnBlock, Res2Conv))]
+    eager = model(feats, mask).detach()
+    for h in hooks:
+        h.remove()
+    before = tower_epilogue.tower_epilogue.launches
+    with torch.inference_mode():
+        served = model(feats, mask)
+        assert tower_epilogue.tower_epilogue.launches > before
+        for mod, args, want in seen:
+            got = mod(*(a.detach() if torch.is_tensor(a) else a for a in args))
+            want = want.detach()
+            assert not got.masked_select(~mask[:, None, :]).any()
+            a, w = got.float(), want.float()
+            ulp = torch.maximum(a.abs(), w.abs()).clamp_min(2.0 ** -126)
+            ulp = torch.exp2(torch.floor(torch.log2(ulp)) - 7)  # bf16: 8 significant bits
+            within = ((a - w).abs() <= ulp).float().mean().item()
+            assert within >= 0.999, (type(mod).__name__, within)
+    cos = torch.nn.functional.cosine_similarity(served.float(), eager.float(), dim=1)
+    assert float(cos[:-1].min()) >= 0.9999  # the last row has no valid frame
+    assert bool(torch.isfinite(served).all())

@@ -68,7 +68,9 @@ def test_main_on_cpu_prints_rows():
     lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
     rows, last = lines[:-1], lines[-1]
     assert last["benchmark"] == "mfu_probe" and last["rows"] == rows
-    assert last["device"] == "cpu" and last["launches"] == {"log_mel_wave": 0}
+    assert last["device"] == "cpu" and last["launches"] == {"log_mel_wave": 0, "cosine": 0,
+                                                         "identify_topk": 0, "fbank_frames": 0,
+                                                         "tower_epilogue": 0}
     assert [r["stage"] for r in rows] == ["frontend", "tower", "tower_s4", "full"]
     for r in rows:
         assert {"stage", "batch", "ms", "audio_s_per_s", "mfu"} <= set(r)

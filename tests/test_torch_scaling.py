@@ -120,7 +120,7 @@ def test_harness_on_one_and_two_gloo_ranks(tmp_path):
         for r in rank_rows:
             assert r["ms"] > 0  # CPU tensors: the plain versions, no launch
             assert r["launches"] == {"log_mel_wave": 0, "cosine": 0, "identify_topk": 0,
-                                     "fbank_frames": 0}
+                                     "fbank_frames": 0, "tower_epilogue": 0}
 
     one = np.load(tmp_path / "emb-1-0.npy")
     two = [np.load(tmp_path / f"emb-2-{r}.npy") for r in range(2)]

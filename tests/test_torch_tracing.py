@@ -198,7 +198,9 @@ def test_embed_windows_spans_and_counters(how, narrow_engine, monkeypatch):
     assert emb.shape == (19, narrow_engine.emb_dim)
     assert got == {"diarize.windows": 3, "embed.copy_in": 3, "embed.issue": 3,
                    "diarize.copy_out": 3}
-    assert profiling.counters() == {"embed.rows": 24, "embed.pad_rows": 5}
+    # and each chunk's tower forward counts its 29 epilogues (eager on the CPU)
+    assert profiling.counters() == {"embed.rows": 24, "embed.pad_rows": 5,
+                                    "tower.epilogues": 3 * 29}
 
 
 def test_embed_all_windows_counts_pad_rows(narrow_engine, monkeypatch):
@@ -206,7 +208,7 @@ def test_embed_all_windows_counts_pad_rows(narrow_engine, monkeypatch):
     of 16 rows."""
     monkeypatch.setenv("SDTK_PROFILE", "1")
     narrow_engine.embed_all_windows(np.zeros(160000, np.float32))
-    assert profiling.counters() == {"embed.rows": 16, "embed.pad_rows": 10}
+    assert profiling.counters() == {"embed.rows": 16, "embed.pad_rows": 10, "tower.epilogues": 29}
 
 
 def three_voices(n: int = 96, seed: int = 0) -> np.ndarray:
