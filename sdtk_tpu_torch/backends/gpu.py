@@ -3,13 +3,17 @@
 The counterpart of ``sdtk_tpu/backends/tpu.py``.  Audio windows are
 batched on the host, then featurized by the fused log-mel kernel
 (``ops/fbank_wave.py``), embedded by the tower and L2-normalized on the
-device.  The tower is ``ecapa`` (ECAPA-TDNN), ``xvector`` or ``conformer``
-(dim ``min(channels, 256)``), chosen by the ``model`` argument, else
-``$SDTK_BACKEND_TOWER`` (default ``ecapa``).  The checkpoint search and
+device.  The tower is ``ecapa`` (ECAPA-TDNN), ``xvector``, ``conformer``
+(dim ``min(channels, 256)``) or ``wavlm_ecapa`` (WavLM Large + ECAPA-TDNN,
+``models/wavlm.py``), chosen by the ``model`` argument, else
+``$SDTK_BACKEND_TOWER`` (default ``ecapa``).  ``wavlm_ecapa`` takes the raw
+samples: its route skips the log-mel kernel and the input norm, and its
+model masks frames by the CNN's length formula.  The checkpoint search and
 its sidecars are the JAX package's:
 
 - checkpoint: ``$SDTK_MODEL_PATH``, then ``model_dir()/<slug>.msgpack``
-  (``ecapatdnn``, ``xvector`` or ``conformer``), then the bundled one:
+  (``ecapatdnn``, ``xvector``, ``conformer`` or ``wavlm_ecapa``), then the
+  bundled one:
   ``models/ecapatdnn-fam5tel.msgpack`` for ECAPA at 512 channels, else
   ``models/<slug>.msgpack``.  No Conformer file is bundled: without one
   the tower takes seeded random weights (``params_source`` says
@@ -17,7 +21,7 @@ its sidecars are the JAX package's:
 - ``<ckpt>.config.json``: ``{"model": {EcapaConfig overrides},
   "frontend": {FrontendConfig overrides}, "input_norm": {"mean", "std"}}``
   (the x-vector and the Conformer, as in the JAX package, take no
-  ``model`` overrides);
+  ``model`` overrides; ``wavlm_ecapa`` takes ``WavLMEcapaConfig``'s);
 - ``<ckpt>.calib.json``: score calibration (affine into the 0.354
   threshold space); its ``suggested_merge_tau`` is the diarizer's merge
   bar;
@@ -42,6 +46,7 @@ import torch
 from .. import config
 from ..models.conformer import Conformer, ConformerConfig
 from ..models.ecapa import EcapaConfig, EcapaTdnn, l2_normalize, prepare_serving
+from ..models.wavlm import WavLMEcapa, WavLMEcapaConfig
 from ..models.xvector import XVector, XVectorConfig
 from ..ops.fbank import FrontendConfig
 from ..ops.fbank_wave import log_mel_wave
@@ -54,7 +59,8 @@ from .base import LocalEmbeddingBackend
 WINDOW_SECONDS = 3.0
 HOP_SECONDS = 1.5
 # tower name → checkpoint file stem
-CKPT_SLUG = {"ecapa": "ecapatdnn", "xvector": "xvector", "conformer": "conformer"}
+CKPT_SLUG = {"ecapa": "ecapatdnn", "xvector": "xvector", "conformer": "conformer",
+             "wavlm_ecapa": "wavlm_ecapa"}
 
 
 class GpuBackend(LocalEmbeddingBackend):
@@ -69,7 +75,7 @@ class GpuBackend(LocalEmbeddingBackend):
     ):
         model = model or os.environ.get("SDTK_BACKEND_TOWER", "ecapa")
         if model not in CKPT_SLUG:
-            raise ValueError(f"unknown model '{model}' (ecapa | xvector | conformer)")
+            raise ValueError(f"unknown model '{model}' (ecapa | xvector | conformer | wavlm_ecapa)")
         self.device = resolve_device(device)
         self._args = (model, channels, max_windows, params_path, seed)
         self._engine = None
@@ -177,8 +183,12 @@ class EmbedEngine:
         self.window_len = int(WINDOW_SECONDS * self.cfg.sample_rate)
         self.hop_len = int(HOP_SECONDS * self.cfg.sample_rate)
         self.max_windows = max_windows
+        self.waveform = model_name == "wavlm_ecapa"  # samples in: no K1, no input norm
 
-        if model_name == "xvector":  # the JAX engine applies no sidecar "model" here
+        if self.waveform:
+            self.model = WavLMEcapa(WavLMEcapaConfig.from_dict(sidecar.get("model", {})))
+            to_state_dict = ecapa_state_dict  # the tree is ECAPA's layout (write_wavlm_ecapa)
+        elif model_name == "xvector":  # the JAX engine applies no sidecar "model" here
             self.model = XVector(XVectorConfig(channels=channels))
             to_state_dict = xvector_state_dict
         elif model_name == "conformer":  # nor here
@@ -281,6 +291,8 @@ class EmbedEngine:
             x = x.to(self.device, non_blocking=True)
             lens = lens.to(self.device)
         with stage("embed.issue"):
+            if self.waveform:
+                return l2_normalize(self.model(x, lens))
             feats, mask = log_mel_wave(x, self.cfg, lengths=lens)
             if self._input_norm is not None:
                 feats = (feats - self._input_norm[0]) / self._input_norm[1]

@@ -25,6 +25,14 @@ its input rows takes its block of the input and sums the partial
 products over the model ranks; SE's fc1 and fc2, split on the bottleneck,
 are one pair with one sum.  Each returns what the whole layer returns.
 
+UniSpeech's layout (``ECAPA_TDNN`` of its speaker-verification recipe,
+the head of ``models/wavlm.py``): ``global_context=False`` pools with
+attention over h_t alone, and ``dense_blocks=True`` feeds block i + 1 the
+sum of the stem's and every earlier block's output (UniSpeech's
+``out3 = layer3(out1 + out2) + out1 + out2``); the MFA concatenates the
+blocks' outputs either way.  Both at their defaults leave the tower as
+the JAX module computes it.
+
 Serving route.  An eval forward on the card in bf16 with autograd off (no
 ``tp``) takes each convolution's ReLU → BatchNorm → bf16 → mask in one
 launch of ``ops/tower_epilogue.py`` (a Res2 split's next-split add and its
@@ -119,6 +127,8 @@ class EcapaConfig:
     dtype: str = "bfloat16"
     mfa_bn: bool = False    # SpeechBrain layout: BN after the MFA conv+relu
     asp_tdnn: bool = False  # SpeechBrain layout: conv→relu→BN→tanh→conv attention
+    global_context: bool = True  # False (UniSpeech): the attention sees h_t alone
+    dense_blocks: bool = False   # True (UniSpeech): block i takes the sum of all before it
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -384,22 +394,26 @@ class SERes2Block(nn.Module):
 
 class AttentiveStatsPooling(nn.Module):
     """Channel- and context-dependent attentive statistics pooling:
-    attention sees [h_t, global mean, global std]; returns (B, 2C) f32."""
+    attention sees [h_t, global mean, global std] (``global_context``) or
+    h_t alone; returns (B, 2C) f32."""
 
-    def __init__(self, channels: int, attention_channels: int = 128, tdnn_attention=False):
+    def __init__(self, channels: int, attention_channels: int = 128, tdnn_attention=False,
+                 global_context=True):
         super().__init__()
-        self.att1 = Conv(3 * channels, attention_channels)
+        self.att1 = Conv((3 if global_context else 1) * channels, attention_channels)
         if tdnn_attention:
             self.att_bn = BatchNorm(attention_channels)
         self.att2 = Conv(attention_channels, channels)
         self.tdnn_attention = tdnn_attention
+        self.global_context = global_context
 
     def forward(self, x, mask, dt):
-        m = mask[:, None, :].float()
-        mean, std = _masked_mean_std(x, m)
-        t = x.shape[2]
-        ctx = torch.cat([x, mean[:, :, None].expand(-1, -1, t).to(x.dtype),
-                         std[:, :, None].expand(-1, -1, t).to(x.dtype)], dim=1)
+        ctx = x
+        if self.global_context:
+            mean, std = _masked_mean_std(x, mask[:, None, :].float())
+            t = x.shape[2]
+            ctx = torch.cat([x, mean[:, :, None].expand(-1, -1, t).to(x.dtype),
+                             std[:, :, None].expand(-1, -1, t).to(x.dtype)], dim=1)
         a = self.att1(ctx, dt)
         if self.tdnn_attention:  # unmasked, as the JAX module leaves it
             a = _epilogue(self.att_bn, a, None, dt, None, self.att1)
@@ -427,7 +441,8 @@ class EcapaTdnn(nn.Module):
         if cfg.mfa_bn:
             self.mfa_bn = BatchNorm(cfg.mfa_channels)
         self.asp = AttentiveStatsPooling(cfg.mfa_channels, cfg.attention_channels,
-                                         tdnn_attention=cfg.asp_tdnn)
+                                         tdnn_attention=cfg.asp_tdnn,
+                                         global_context=cfg.global_context)
         self.asp_bn = BatchNorm(2 * cfg.mfa_channels)
         self.embedding = Dense(2 * cfg.mfa_channels, cfg.emb_dim)
 
@@ -446,8 +461,9 @@ class EcapaTdnn(nn.Module):
         x = self.stem(x, m, dt, mask)
         block_outs = []
         for i in range(len(cfg.dilations)):
-            x = getattr(self, f"block{i + 1}")(x, m, dt, mask)
-            block_outs.append(x)
+            out = getattr(self, f"block{i + 1}")(x, m, dt, mask)
+            block_outs.append(out)
+            x = x + out if cfg.dense_blocks else out
 
         x = _epilogue(self.mfa_bn if cfg.mfa_bn else None,
                       self.mfa(torch.cat(block_outs, dim=1), dt), m, dt, mask, self.mfa)

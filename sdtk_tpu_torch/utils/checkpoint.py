@@ -17,6 +17,8 @@ variables → the port's state dict (``ecapa_state_dict``,
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from pathlib import Path
 
 import msgpack
@@ -180,6 +182,22 @@ def ecapa_jax_tree(state_dict: dict[str, torch.Tensor]) -> dict:
             a = a.transpose(2, 1, 0) if a.ndim == 3 else a.T
         out[collection][path.replace("/", ".")] = np.ascontiguousarray(a)
     return {"params": _nest(out["params"]), "batch_stats": _nest(out["batch_stats"])}
+
+
+def write_wavlm_ecapa(path: str | Path, model: torch.nn.Module) -> None:
+    """``model``'s (a ``WavLMEcapa``) variables file at ``path`` and its
+    ``.config.json`` sidecar ``{"model": its WavLMEcapaConfig}``, which
+    ``GpuBackend(model="wavlm_ecapa")`` serves through ``$SDTK_MODEL_PATH``.
+    The tree is ECAPA's conversion throughout (:func:`ecapa_jax_tree`, read
+    back by :func:`ecapa_state_dict`): Conv kernels (k, in/groups, out),
+    Dense kernels (in, out), a norm's 1-D ``weight`` as ``scale``, the
+    head's BatchNorm statistics in ``batch_stats``; ``layers/0/rel_table``
+    (320, H), each layer's ``gate_const`` (H,) and ``mix/scale`` (the 25
+    state weights) as they are."""
+    write_msgpack(path, ecapa_jax_tree(model.state_dict()))
+    sidecar = {"model": dataclasses.asdict(model.cfg)}
+    atomic_write_bytes(Path(path).with_suffix(".config.json"),
+                       (json.dumps(sidecar, indent=1) + "\n").encode())
 
 
 def flax_leaf(key: str, ndim: int) -> tuple[str, str]:

@@ -33,6 +33,7 @@ PREFIX = "sdtk."
 
 _times: dict[str, list[float]] = defaultdict(list)
 _counts: dict[str, int] = defaultdict(int)
+_pending: dict[str, list[torch.Tensor]] = defaultdict(list)  # device counts, read later
 _lock = threading.Lock()  # worker threads share the registry
 _registered = False
 
@@ -74,19 +75,28 @@ def stage(name: str):
                 _times[name].append(elapsed)
 
 
-def count(name: str, n: int = 1) -> None:
+def count(name: str, n: "int | torch.Tensor" = 1) -> None:
     """Add ``n`` to counter ``name`` while a profiler runs or
-    ``SDTK_PROFILE=1``."""
+    ``SDTK_PROFILE=1``.  A tensor ``n`` (a count still on the card) is kept
+    and read by :func:`counters`, so counting never waits for the device."""
     if _tracing() or enabled():
         with _lock:
-            _counts[name] += int(n)
+            if isinstance(n, torch.Tensor):
+                _pending[name].append(n.detach())
+            else:
+                _counts[name] += int(n)
 
 
 def counters() -> dict[str, int]:
-    return dict(_counts)
+    with _lock:
+        for name, kept in _pending.items():
+            _counts[name] += sum(int(t) for t in kept)
+        _pending.clear()
+        return dict(_counts)
 
 
 def report(out=None) -> None:
+    counters()
     if not _times and not _counts:
         return
     out = out or sys.stderr
@@ -108,6 +118,7 @@ def report(out=None) -> None:
 def reset() -> None:
     _times.clear()
     _counts.clear()
+    _pending.clear()
 
 
 def span_self_ms(events) -> dict[str, tuple[int, float]]:
