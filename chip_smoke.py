@@ -297,21 +297,15 @@ def trace_device_us(prof, kernel: str = "") -> float:
 def device_ms(fn, kernel: str, reps: int = 20):
     """Mean device time of the CUDA kernel whose name contains ``kernel``
     over ``reps`` calls of ``fn`` (``torch.profiler``): the kernel alone,
-    without the wrapper's host work.  A trace that shows no device time
-    is taken once more; "not measured" where the second shows none
-    either."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    without the wrapper's host work.  A trace that shows no device time, or
+    that dropped launches (``tools/measure.py:whole``), is taken once more,
+    up to three traces; "not measured" where none shows a whole one."""
+    from sdtk_tpu_torch.tools.measure import traced_kernels, whole
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total_us = trace_device_us(prof, kernel)
-        if total_us > 0:
+    for _ in range(3):
+        rows = [r for r in traced_kernels(fn, reps) if kernel in r[0]]
+        total_us = sum(us for _, us, _ in rows)
+        if total_us > 0 and whole(rows, reps):
             return total_us / reps / 1e3
     return "not measured"
 

@@ -27,6 +27,11 @@ its sidecars are the JAX package's:
   bar;
 - ``<ckpt>.cohort.npy``: the AS-norm cohort for identify/verify scoring.
 
+A small batch on the log-mel route (rows × samples at or under
+``embed_graph.CEILING``, an ECAPA or x-vector tower on the serving route),
+at a shape met before, replays a CUDA graph of its forward
+(``backends/embed_graph.py``).
+
 Float32 convolutions run in full float32: the engine turns off cuDNN's
 TF32 (``torch.backends.cudnn.allow_tf32``, on by default), as the JAX
 reference computes them; the bf16 serving path is unaffected.
@@ -55,6 +60,7 @@ from ..utils.checkpoint import (conformer_state_dict, ecapa_state_dict, read_msg
 from ..utils.device import resolve_device
 from ..utils.profiling import count, stage
 from .base import LocalEmbeddingBackend
+from .embed_graph import GraphRoute
 
 WINDOW_SECONDS = 3.0
 HOP_SECONDS = 1.5
@@ -214,6 +220,7 @@ class EmbedEngine:
         if device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             prepare_serving(self.model)  # bf16 weights, BatchNorm constants: built once here
+        self._graph = GraphRoute(self.model, device, self.log_mel_forward)
         self.calibration = self._load_calibration()
         self.cohort = self._load_cohort()
 
@@ -281,22 +288,35 @@ class EmbedEngine:
     @torch.inference_mode()
     def embed(self, windows, lengths) -> torch.Tensor:
         """(W, L) windows + (W,) valid sample counts (numpy or tensors) →
-        (W, emb_dim) float32 unit rows on the engine's device."""
+        (W, emb_dim) float32 unit rows on the engine's device.  A small
+        batch on the log-mel route, at a shape met before, replays a CUDA
+        graph of the forward (``embed_graph.py``); a waveform model, a
+        large batch, a tower off the serving route or a new shape runs it
+        eagerly."""
+        x = torch.as_tensor(windows, dtype=torch.float32)
+        lens = torch.as_tensor(lengths, dtype=torch.int64)
+        count("embed.rows", x.shape[0])
+        if self.device.type == "cuda":
+            count("embed.h2d_bytes", sum(t.nbytes for t in (x, lens) if t.device.type == "cpu"))
+        if not self.waveform and self._graph.engages(x):
+            out = self._graph(x, lens)
+            if out is not None:
+                return out
         with stage("embed.copy_in"):
-            x = torch.as_tensor(windows, dtype=torch.float32)
-            lens = torch.as_tensor(lengths, dtype=torch.int64)
-            count("embed.rows", x.shape[0])
-            if self.device.type == "cuda":
-                count("embed.h2d_bytes", sum(t.nbytes for t in (x, lens) if t.device.type == "cpu"))
             x = x.to(self.device, non_blocking=True)
             lens = lens.to(self.device)
         with stage("embed.issue"):
             if self.waveform:
                 return l2_normalize(self.model(x, lens))
-            feats, mask = log_mel_wave(x, self.cfg, lengths=lens)
-            if self._input_norm is not None:
-                feats = (feats - self._input_norm[0]) / self._input_norm[1]
-            return l2_normalize(self.model(feats, mask))
+            return self.log_mel_forward(x, lens)
+
+    def log_mel_forward(self, x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """The log-mel route on the device, eagerly: K1, the input norm, the
+        tower, L2."""
+        feats, mask = log_mel_wave(x, self.cfg, lengths=lens)
+        if self._input_norm is not None:
+            feats = (feats - self._input_norm[0]) / self._input_norm[1]
+        return l2_normalize(self.model(feats, mask))
 
     def _window_all(self, wav: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Cut the whole recording into fixed windows: (n, L) and (n,)

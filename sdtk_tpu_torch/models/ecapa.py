@@ -67,8 +67,19 @@ def serving(mod: "Conv | Dense", x: torch.Tensor, dt: torch.dtype) -> bool:
     """Take the serving route: an eval Conv or Dense on the card, bf16, with
     autograd off (the kernel has no backward) and no tensor-parallel
     split."""
-    return (x.device.type in SERVING_DEVICES and not mod.training and dt == torch.bfloat16
+    return _serving_on(mod, x.device, dt)
+
+
+def _serving_on(mod: "Conv | Dense", device: torch.device, dt: torch.dtype) -> bool:
+    return (device.type in SERVING_DEVICES and not mod.training and dt == torch.bfloat16
             and not torch.is_grad_enabled() and mod.tp is None)
+
+
+def serving_tower(modules, device: torch.device, dt: torch.dtype) -> bool:
+    """Every Conv and Dense among ``modules`` (a tower's ``modules()``)
+    takes the serving route on ``device`` in ``dt``: the tower's whole
+    forward is the serving one."""
+    return all(_serving_on(m, device, dt) for m in modules if isinstance(m, (Conv, Dense)))
 
 
 def _serving_copy(mod: nn.Module, sources: tuple[torch.Tensor, ...], make):

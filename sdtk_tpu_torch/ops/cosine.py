@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..utils import build
+from ..utils.profiling import launched
 from ..utils.device import resolve_device
 
 NUMPY_MAX_WORK = 1 << 24  # Q·N·D below which NumPy scores small inputs
@@ -64,7 +65,7 @@ def cosine_cuda(queries: torch.Tensor, profiles: torch.Tensor) -> torch.Tensor:
         return out.zero_()
     build.launch("cosine", _ARGTYPES, q.data_ptr(), p.data_ptr(), out.data_ptr(), nq, n, d,
                  torch.cuda.current_stream(q.device).cuda_stream)
-    cosine.launches += 1
+    launched(cosine)
     return out
 
 

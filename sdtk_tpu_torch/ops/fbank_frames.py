@@ -24,6 +24,7 @@ from dataclasses import replace
 import torch
 
 from ..utils import build
+from ..utils.profiling import launched
 from .fbank import (FrontendConfig, bases, check_kernel_range, mask_for, normalize,
                     packed_bases, preemphasize)
 
@@ -76,7 +77,7 @@ def fbank_frames_cuda(frames: torch.Tensor, cfg: FrontendConfig = FrontendConfig
                  out.data_ptr(), m, cfg.win_length, cfg.n_fft // 2 + 1, cfg.n_mels,
                  float(cfg.log_floor), int(bf16),
                  torch.cuda.current_stream(frames.device).cuda_stream)
-    fbank_frames.launches += 1
+    launched(fbank_frames)
     return out
 
 

@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from ..utils import build
+from ..utils.profiling import launched
 from . import melbank
 from .fbank import (FrontendConfig, bases, check_kernel_range, mask_for, normalize,
                     pad_centered, packed_bases, preemphasize, raw_log_mel)
@@ -60,7 +61,7 @@ def log_mel_wave_cuda(x: torch.Tensor, cfg: FrontendConfig, coeff: float) -> tor
         float(coeff), int(cfg.log_scale == "db"), float(cfg.log_floor), int(bf16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    log_mel_wave.launches += 1
+    launched(log_mel_wave)
     return out
 
 

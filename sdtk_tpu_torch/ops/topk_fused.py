@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from ..utils import build
+from ..utils.profiling import launched
 from .cosine import rsqrt_normalize
 from .topk import identify_topk_plain, select_topk
 
@@ -100,7 +101,7 @@ def identify_topk_cuda(queries: torch.Tensor, profiles: torch.Tensor, k: int = 6
     build.launch("identify_topk", _ARGTYPES, q.data_ptr(), p.data_ptr(), base,
                  base + 4 * (nq + 3 * nc), cand_s.data_ptr(), cand_i.data_ptr(), w, n, d, kc,
                  int(p.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
-    identify_topk_fused.launches += 1
+    launched(identify_topk_fused)
     # Each tile is sorted (score desc, row asc) and tiles hold ascending
     # rows, so a stable sort of the survivors breaks ties by row.  Rows
     # past N sit at -inf behind the min(k, N) real rows taken.

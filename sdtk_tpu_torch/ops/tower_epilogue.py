@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from ..utils import build
+from ..utils.profiling import launched
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _P, _L, _P, _L, _P, _I, _I, _I, _P]
@@ -111,7 +112,7 @@ def tower_epilogue_cuda(y: torch.Tensor, mask: torch.Tensor | None = None,
     build.launch("tower_epilogue", _ARGTYPES, y.data_ptr(), ptr(scale), ptr(shift), ptr(mask),
                  out.data_ptr(), out.stride(0), ptr(add), add.stride(0) if add is not None else 0,
                  ptr(total), b, c, t, torch.cuda.current_stream(y.device).cuda_stream)
-    tower_epilogue.launches += 1
+    launched(tower_epilogue)
     return out if add is None else (out, total)
 
 

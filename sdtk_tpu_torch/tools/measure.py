@@ -2,9 +2,9 @@
 ``nvidia-smi``, device time by kernel (``torch.profiler``), CUDA-event time,
 the host time of a call, a kernel library built with an extra ``-D`` flag,
 a tool run once per checkout in fresh processes, the card's least time for
-some bytes and operations, every kernel wrapper (for its launch count);
-and two small helpers of the multi-rank tools: a free TCP port and the
-cosine of two tensors."""
+some bytes and operations, every kernel wrapper (``ops.kernel_wrappers``,
+for its launch count); and two small helpers of the multi-rank tools: a
+free TCP port and the cosine of two tensors."""
 
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+from ..ops import kernel_wrappers  # noqa: F401  (the bench tools read it from here)
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3.
 # "tf32x3" is f32-accurate work at the card's fastest route for it: three
@@ -47,17 +49,6 @@ def smi(query: str, index: int | None = None) -> str:
     return out.strip().splitlines()[0]
 
 
-def kernel_wrappers() -> dict:
-    """Every kernel wrapper, by kernel name (each counts its launches in
-    ``.launches``)."""
-    from ..ops import cosine, fbank_frames, fbank_wave, topk_fused, tower_epilogue
-
-    return {"log_mel_wave": fbank_wave.log_mel_wave, "cosine": cosine.cosine,
-            "identify_topk": topk_fused.identify_topk_fused,
-            "fbank_frames": fbank_frames.fbank_frames,
-            "tower_epilogue": tower_epilogue.tower_epilogue}
-
-
 def free_port() -> int:
     """A free TCP port on this machine, for a process group's rendezvous."""
     with socket.socket() as sock:
@@ -73,8 +64,10 @@ def cos(a, b) -> float:
     return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
 
 
-def device_ms_by_kernel(fn, reps: int = 20) -> dict[str, float]:
-    """Mean device ms per call of ``fn``, by CUDA kernel name."""
+def traced_kernels(fn, reps: int = 20) -> list[tuple[str, float, int]]:
+    """Each CUDA kernel and copy of ``reps`` calls of ``fn``, traced after
+    one untraced call (``torch.profiler``): (name, device µs over all the
+    calls, launches recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -84,18 +77,32 @@ def device_ms_by_kernel(fn, reps: int = 20) -> dict[str, float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key: float(getattr(e, "self_device_time_total", 0.0)
-                         or getattr(e, "self_cuda_time_total", 0.0)) / reps / 1e3
-            for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
+    return [(e.key, float(getattr(e, "self_device_time_total", 0.0)
+                          or getattr(e, "self_cuda_time_total", 0.0)), e.count)
+            for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+
+
+def whole(rows: list[tuple[str, float, int]], reps: int) -> bool:
+    """The trace recorded every launch: each kernel a whole multiple of
+    ``reps`` times (a trace can drop launches, and then reads low)."""
+    return all(n % reps == 0 for _, _, n in rows)
+
+
+def device_ms_by_kernel(fn, reps: int = 20) -> dict[str, float]:
+    """Mean device ms per call of ``fn``, by CUDA kernel name."""
+    return {name: us / reps / 1e3 for name, us, _ in traced_kernels(fn, reps)}
 
 
 def device_ms_total(fn, reps: int = 20, traces: int = 2, kernel: str = ""):
     """Device ms per call of ``fn`` summed over its kernels whose name holds
-    ``kernel`` ("": every kernel and copy): the larger of ``traces`` traces
-    (a trace can drop kernels), or "not measured" where none showed
-    device time."""
-    best = max(sum(ms for name, ms in device_ms_by_kernel(fn, reps).items() if kernel in name)
-               for _ in range(traces))
+    ``kernel`` ("": every kernel and copy): the larger of ``traces``
+    traces, leaving out a trace that dropped launches (:func:`whole`), or
+    "not measured" where none is whole and shows device time."""
+    best = 0.0
+    for _ in range(traces):
+        rows = [r for r in traced_kernels(fn, reps) if kernel in r[0]]
+        if whole(rows, reps):
+            best = max(best, sum(us for _, us, _ in rows) / reps / 1e3)
     return best if best > 0 else "not measured"
 
 

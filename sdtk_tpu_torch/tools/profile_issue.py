@@ -1,14 +1,26 @@
 """Where the host's time goes while it issues one chunk of windows.
 
-    python -m sdtk_tpu_torch.tools.profile_issue [--windows 128] [--reps 40] [--device cuda]
+    python -m sdtk_tpu_torch.tools.profile_issue [--windows 128] [--samples 16000]
+        [--reps 40] [--device cuda]
 
 Builds the default GPU backend's embed engine (the bundled c512 tower),
-warms it up on ``--windows`` one-second windows, then prints three JSON
-lines:
+warms it up on ``--windows`` windows of ``--samples`` samples, then prints
+three JSON lines:
 
-* ``issue``: the host ms of ``EmbedEngine.embed`` (K1, the tower, the
-  norm) and of the tower's forward alone, each from its call to its
-  return with the card drained first (``tools/measure.py:host_ms``);
+* ``issue``: the host ms of the eager embed (the copy in, K1, the tower,
+  the norm: ``EmbedEngine.log_mel_forward``) and of the tower's forward
+  alone, each from its call to its return with the card drained first
+  (``tools/measure.py:host_ms``); the card's ms for the eager embed (every
+  kernel and copy, ``measure.device_ms_total``, read before any graph is
+  captured in the process; None on the CPU); beside them the graph route
+  (``backends/embed_graph.py``) at the shape: the host ms of its second
+  call, which captures (``capture_ms``, a miss: None where nothing was
+  captured), of a later ``EmbedEngine.embed`` call (``graph_issue_ms``),
+  and how many of 3 calls replayed (``graph_calls``: 0, and no ms, where
+  the route does not engage: on the CPU, or above its ceiling), read from
+  the ``embed.graph_*`` counters on a ``profiling.tape``.  Where
+  ``embed_issue_ms`` exceeds ``device_ms`` the card waits on the host; the
+  rows × samples where the two cross set the route's ceiling;
 * ``profile``: ``cProfile`` over ``--reps`` tower forwards, self time per
   forward by group (the serving route's own Python in ``models/ecapa.py``,
   the epilogue's wrapper and ``utils/build.py:launch``, the counters,
@@ -32,6 +44,7 @@ import argparse
 import cProfile
 import json
 import pstats
+import time
 import timeit
 
 _ROUTE = ("serving", "_serving_copy", "_cast_copy", "_params", "serving_affine", "_epilogue")
@@ -78,6 +91,7 @@ def _us(fn, n: int = 2000) -> float:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--windows", type=int, default=128)
+    p.add_argument("--samples", type=int, default=16000)
     p.add_argument("--reps", type=int, default=40)
     p.add_argument("--device", default="cuda")
     p.add_argument("--top", type=int, default=20)
@@ -89,13 +103,14 @@ def main(argv: list[str] | None = None) -> int:
     from ..backends.base import get_backend
     from ..models import ecapa
     from ..ops import fbank_wave, tower_epilogue
+    from ..utils import profiling
     from . import measure
 
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"
     eng = get_backend("gpu", device=args.device).engine
-    wav = 0.1 * np.random.default_rng(0).standard_normal((args.windows, 16000), np.float32)
-    lens = np.full(args.windows, 16000, np.int32)
+    wav = 0.1 * np.random.default_rng(0).standard_normal((args.windows, args.samples), np.float32)
+    lens = np.full(args.windows, args.samples, np.int32)
     with torch.inference_mode():
         x = torch.from_numpy(wav).to(dev)
         feats, mask = fbank_wave.log_mel_wave(x, eng.cfg, lengths=torch.from_numpy(lens).to(dev))
@@ -110,14 +125,36 @@ def main(argv: list[str] | None = None) -> int:
         with torch.inference_mode():
             return eng.model(feats, mask)
 
+    def eager():
+        with torch.inference_mode():
+            return eng.log_mel_forward(torch.from_numpy(wav).to(dev, non_blocking=True),
+                                       torch.from_numpy(lens).to(dev, torch.int64))
+
     for _ in range(3):
-        eng.embed(wav, lens)
+        eager()
     sync()
     host = measure.host_ms if cuda else (lambda fn, reps=5: _us(fn, reps) / 1e3)
     card = measure.smi("name,power.limit") if cuda else "cpu"
-    print(json.dumps({"issue": {"card": card, "windows": args.windows,
-                                "embed_issue_ms": host(lambda: eng.embed(wav, lens)),
-                                "tower_issue_ms": host(forward)}}), flush=True)
+    device_ms = measure.device_ms_total(eager) if cuda else None
+    eng.embed(wav, lens)  # the shape's first call: eager
+    sync()
+    with profiling.tape() as taped:
+        t0 = time.perf_counter()
+        eng.embed(wav, lens)  # the second: the capture
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        sync()
+    captured = taped.counts.get("embed.graph_captures", 0)
+    with profiling.tape() as taped:
+        for _ in range(3):
+            eng.embed(wav, lens)
+    graph_calls = taped.counts.get("embed.graph_rows", 0) // args.windows
+    graph_ms = host(lambda: eng.embed(wav, lens)) if graph_calls else None
+    print(json.dumps({"issue": {"card": card, "windows": args.windows, "samples": args.samples,
+                                "embed_issue_ms": host(eager), "tower_issue_ms": host(forward),
+                                "device_ms": device_ms,
+                                "capture_ms": capture_ms if captured else None,
+                                "graph_issue_ms": graph_ms, "graph_calls": graph_calls}}),
+          flush=True)
 
     prof = cProfile.Profile()
     for _ in range(args.reps):

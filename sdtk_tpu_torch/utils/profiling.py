@@ -10,6 +10,12 @@
   its seconds hold its device work.  With both off it does nothing.
 - ``count(name, n)``: adds to a counter while either is on; ``counters()``
   reads them and ``report()`` lists them under the stage times.
+- ``launched(fn)``: one launch of kernel wrapper ``fn``, counted in its
+  ``.launches``.
+- ``tape()``: inside it a thread's counts and launches go to the tape
+  instead, the counts whether or not either is on (what a CUDA graph's
+  capture counts, added again at each replay); other threads count as
+  before.
 - ``trace(dir)``: ``torch.profiler`` over the host and the card, written
   as a Chrome / TensorBoard trace (``*.pt.trace.json``) under ``dir`` or
   ``$SDTK_TRACE_DIR``; with neither set it does nothing.
@@ -35,6 +41,7 @@ _times: dict[str, list[float]] = defaultdict(list)
 _counts: dict[str, int] = defaultdict(int)
 _pending: dict[str, list[torch.Tensor]] = defaultdict(list)  # device counts, read later
 _lock = threading.Lock()  # worker threads share the registry
+_taped = threading.local()  # .tape: the open Tape of this thread
 _registered = False
 
 
@@ -78,13 +85,58 @@ def stage(name: str):
 def count(name: str, n: "int | torch.Tensor" = 1) -> None:
     """Add ``n`` to counter ``name`` while a profiler runs or
     ``SDTK_PROFILE=1``.  A tensor ``n`` (a count still on the card) is kept
-    and read by :func:`counters`, so counting never waits for the device."""
+    and read by :func:`counters`, so counting never waits for the device.
+    Inside :func:`tape`, ``n`` goes to the tape (a plain count only)."""
+    taped = getattr(_taped, "tape", None)
+    if taped is not None:
+        if isinstance(n, torch.Tensor):
+            raise ValueError(f"counter {name}: a count left on the card cannot be taped")
+        taped.counts[name] = taped.counts.get(name, 0) + int(n)
+        return
     if _tracing() or enabled():
         with _lock:
             if isinstance(n, torch.Tensor):
                 _pending[name].append(n.detach())
             else:
                 _counts[name] += int(n)
+
+
+def launched(fn) -> None:
+    """One launch of kernel wrapper ``fn``: added to ``fn.launches``, or,
+    inside :func:`tape`, to the tape."""
+    taped = getattr(_taped, "tape", None)
+    if taped is None:
+        fn.launches += 1
+    else:
+        taped.launches[fn] = taped.launches.get(fn, 0) + 1
+
+
+class Tape:
+    """What one thread counted inside :func:`tape`: ``counts`` by counter
+    name, ``launches`` by kernel wrapper."""
+
+    def __init__(self):
+        self.counts: dict[str, int] = {}
+        self.launches: dict[object, int] = {}
+
+    def add(self) -> None:
+        """Count all of it once more, as if it had run again."""
+        for name, n in self.counts.items():
+            count(name, n)
+        for fn, n in self.launches.items():
+            fn.launches += n
+
+
+@contextmanager
+def tape():
+    """Within the block, this thread's :func:`count` and :func:`launched`
+    calls add to the yielded :class:`Tape` and not to the registry or the
+    wrappers, whether or not counting is on."""
+    outer, _taped.tape = getattr(_taped, "tape", None), Tape()
+    try:
+        yield _taped.tape
+    finally:
+        _taped.tape = outer
 
 
 def counters() -> dict[str, int]:

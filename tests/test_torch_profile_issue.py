@@ -1,5 +1,6 @@
 """``tools/profile_issue.py``: the host-issue profile of one chunk, on the
-CPU (the eager route: no epilogue launch, so no wrapper time)."""
+CPU (the eager route: no epilogue launch, so no wrapper time, and no
+graph)."""
 
 import contextlib
 import cProfile
@@ -49,8 +50,11 @@ def test_main_on_cpu():
     assert rc == 0
     lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
     issue, prof, route = (ln[k] for ln, k in zip(lines, ("issue", "profile", "route")))
-    assert issue["card"] == "cpu" and issue["windows"] == 2
+    assert issue["card"] == "cpu" and issue["windows"] == 2 and issue["samples"] == 16000
     assert issue["embed_issue_ms"] > 0 and issue["tower_issue_ms"] > 0
+    assert issue["graph_calls"] == 0 and issue["graph_issue_ms"] is None  # no graph on the CPU
+    assert issue["capture_ms"] is None
+    assert issue["device_ms"] is None
     assert prof["group_ms"]["torch_ops"] > 0 and len(prof["top"]) == 4
     assert prof["calls_per_forward"]["_epilogue"] == 29  # c512: every epilogue, eager
     assert "tower_epilogue_cuda" not in prof["calls_per_forward"]

@@ -444,11 +444,15 @@ def test_readers_return_nothing_without_a_trace(name):
 
 
 @pytest.mark.parametrize("traced", [0, 1])
-def test_a_small_run_of_the_cell(tmp_path, traced):
+def test_a_small_run_of_the_cell(tmp_path, monkeypatch, traced):
     """The cell's loop at a small size on the CPU: correct, and in a traced
     run the program's counter and span metrics read."""
     import run
 
+    # the harness serves its weights through $SDTK_MODEL_PATH; set here
+    # (empty reads as unset) so that it is unset again after the test, and
+    # later tests in this process search the default paths
+    monkeypatch.setenv("SDTK_MODEL_PATH", "")
     cell = manifest.cell(manifest.load(), CELL)
     cfg = dict(cell["config"], name="small-wavlm",
                model=dict(cell["config"]["model"], **{k: list(v) if isinstance(v, tuple) else v
